@@ -1,0 +1,145 @@
+"""Stage 2 — UNet blob detection over the masked volume, on the card.
+
+The counterpart of ``delivr_cfos_tpu/pipeline/stage02_inference.py``
+(reference: inference/inference.py:113-332), with the same output contract:
+
+    {blob_output}/{mouse}/binary_segmentations/binaries.npy   uint8 (Z, Y, X)
+    {blob_output}/{mouse}/binary_segmentations/network_output.npy
+        float32 sigmoid outputs, only when FLAGS.SAVE_ACTIVATED_OUTPUT
+
+Weights may be the reference torch .tar checkpoint or the JAX package's .npz.
+This slice runs the whole volume in device memory. The out-of-core streaming
+branch and spatial sharding over several devices raise NotImplementedError:
+they are later items of ROADMAP.md ("Out-of-core streaming", "Multi-GPU").
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from delivr_cfos_tpu_torch.config import PipelineConfig
+from delivr_cfos_tpu_torch.engine.sliding_window import (
+    SlidingWindowConfig,
+    _device_bytes,
+    infer_volume,
+)
+from delivr_cfos_tpu_torch.models.basic_unet import (
+    BasicUNetConfig,
+    build_model,
+    infer_model_config,
+)
+from delivr_cfos_tpu_torch.models.convert import load_weights
+from delivr_cfos_tpu_torch.ops.morphology import binarize_logits
+from delivr_cfos_tpu_torch.utils.device import resolve_device
+from delivr_cfos_tpu_torch.utils.io.npy import open_memmap
+from delivr_cfos_tpu_torch.utils.logging import log
+
+
+def resolve_model_config(bd, params, device) -> tuple[BasicUNetConfig, str]:
+    """The model config for ``blob_detection.precision`` ('fast' | 'parity'
+    | 'auto'); 'auto' is 'fast' on CUDA and 'parity' on the CPU. Returns
+    (model_cfg, resolved_mode)."""
+    base = infer_model_config(params)
+    mode = (bd.precision or "auto").lower()
+    if mode == "auto":
+        mode = "fast" if torch.device(device).type == "cuda" else "parity"
+    if mode not in ("fast", "parity"):
+        raise ValueError(
+            f"blob_detection.precision must be 'fast', 'parity' or 'auto', "
+            f"got {mode!r}"
+        )
+    return dataclasses.replace(base, precision=mode), mode
+
+
+def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
+                  params=None, model_cfg: BasicUNetConfig | None = None,
+                  device=None) -> str:
+    """Returns the session path ({blob_output}/{mouse}). ``params``: a
+    MONAI-keyed state dict (``models/convert.py::load_weights``); ``device``:
+    None means CUDA."""
+    device = resolve_device(device)
+    bd = cfg.blob_detection
+    if bd.spatial_shards > 1:
+        raise NotImplementedError(
+            "spatial_shards > 1: sharded stage 2 is not ported yet "
+            "(ROADMAP.md, Modules to port: 'Multi-GPU')"
+        )
+    input_path = os.path.join(
+        bd.input_location, mouse_name, "masked_niftis", "masked_nifti.npy"
+    )
+    session_path = os.path.join(bd.output_location, mouse_name)
+    binaries_path = os.path.join(session_path, "binary_segmentations")
+
+    volume = np.load(input_path, mmap_mode="r")[0, 0]
+    real_z, real_y, real_x = stack_shape[2:]
+    # input + f32 accumulator + i32 count ≈ 10 bytes/voxel must fit in 0.75
+    # of device memory beside the window batch; otherwise the reference
+    # streams z-slabs (inference.py:240-247)
+    device_bytes = int(_device_bytes(device)[0] * 0.75)
+    if not (cfg.FLAGS.LOAD_ALL_RAM and volume.size * 10 < device_bytes):
+        raise NotImplementedError(
+            f"volume {volume.shape} needs the out-of-core streaming engine, "
+            "which is not ported yet (ROADMAP.md, Modules to port: "
+            "'Out-of-core streaming')"
+        )
+    os.makedirs(binaries_path, exist_ok=True)
+
+    if params is None:
+        log("Loading weights", bd.model_location)
+        params = load_weights(bd.model_location)
+    if model_cfg is None:
+        model_cfg, mode = resolve_model_config(bd, params, device)
+        log(f"Model precision mode: {mode} on {device}")
+    model = build_model(params, model_cfg, device)
+
+    sw_cfg = SlidingWindowConfig(
+        roi=bd.window_dimensions.zyx,
+        overlap=0.5,  # reference: inference.py:125
+        tta=cfg.FLAGS.TEST_TIME_AUGMENTATION,
+        importance=bd.importance,
+        erosion_iters=bd.erosion_iters,
+    )
+    log(
+        f"Inference for {mouse_name}: padded {volume.shape}, "
+        f"real ({real_z}, {real_y}, {real_x}), tta={sw_cfg.tta}, device={device}"
+    )
+    mean_logits, _ = infer_volume(
+        model, np.asarray(volume), sw_cfg, model_cfg, return_binary=False
+    )
+    logits_real = mean_logits[:real_z, :real_y, :real_x]
+    # binarization over the REAL (unpadded) extent, reference create_nifti_seg
+    input_real = torch.from_numpy(
+        np.asarray(volume[:real_z, :real_y, :real_x]) > 0
+    ).to(device)
+
+    out = open_memmap(
+        os.path.join(binaries_path, "binaries.npy"),
+        shape=(real_z, real_y, real_x), dtype=np.uint8,
+    )
+    out[:] = binarize_logits(
+        logits_real, input_real, threshold=sw_cfg.threshold,
+        erosion_iters=sw_cfg.erosion_iters,
+    ).cpu().numpy()
+    out.flush()
+    del out
+    if cfg.FLAGS.SAVE_ACTIVATED_OUTPUT:
+        os.makedirs(os.path.join(session_path, "network_outputs"), exist_ok=True)
+        activated = open_memmap(
+            os.path.join(binaries_path, "network_output.npy"),
+            shape=(real_z, real_y, real_x), dtype=np.float32,
+        )
+        activated[:] = torch.sigmoid(logits_real).cpu().numpy()
+        activated.flush()
+        del activated
+    # a brain interrupted mid-stream by the JAX package's streaming engine and
+    # completed here would otherwise keep its sidecar, and the runner's skip
+    # check (binaries exist AND no sidecar) would re-run it every launch
+    resume_path = os.path.join(binaries_path, "streaming_resume.json")
+    if os.path.exists(resume_path):
+        os.remove(resume_path)
+    log("Blob detection finished", mouse_name)
+    return session_path

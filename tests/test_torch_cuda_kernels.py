@@ -1,0 +1,86 @@
+"""The hand-written CUDA kernels against their plain versions, on the card.
+
+A CUDA kernel has no CPU mode, so these tests carry the ``cuda`` marker and
+skip where there is no card. They import neither JAX nor the JAX package, and
+run on a GPU machine without tests/conftest.py (which imports JAX):
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs, conv3d_cs_reference
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _ulps(got, want):
+    """Largest |got − want| in bf16 ULPs at each value's magnitude, floored at
+    the output's rms: near zero the two f32 sums of 27·C_in products may
+    differ by more than a ULP of the tiny result, never of the typical one."""
+    got = got.float().cpu().numpy()
+    want = want.float().cpu().numpy()
+    rms = float(np.sqrt(np.mean(want.astype(np.float64) ** 2)))
+    mag = np.maximum(np.maximum(np.abs(got), np.abs(want)), max(rms, 2.0**-100))
+    return float((np.abs(got - want) / 2.0 ** (np.floor(np.log2(mag)) - 7)).max())
+
+
+@pytest.mark.parametrize("b,d,h,w,cin,c2,cout,affine", [
+    # gather path (C_in not a multiple of 16): odd C_in, the affine
+    # prologue, pair mode
+    (2, 5, 6, 8, 1, 0, 4, False),
+    (2, 5, 6, 8, 3, 0, 6, True),
+    (1, 4, 9, 7, 4, 5, 40, False),
+    # staged path: level-0/1/2-like rows, the 6 x 4 plane of level 4, an odd
+    # width, pair mode, the prologue, a plane of one tile row
+    (2, 4, 5, 64, 16, 0, 32, False),
+    (2, 6, 6, 4, 64, 0, 32, False),
+    (1, 3, 5, 7, 16, 16, 24, False),
+    (1, 3, 9, 16, 32, 0, 40, True),
+    (2, 3, 7, 32, 16, 16, 32, False),
+    (1, 2, 3, 128, 48, 16, 8, False),
+])
+def test_conv3d_cs_kernel_matches_plain_version(dev, b, d, h, w, cin, c2, cout,
+                                                affine):
+    g = torch.Generator().manual_seed(cin * 100 + cout + w)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    x = rnd(b, d, cin, h * w).to(torch.bfloat16)
+    wt = rnd(3, 3, 3, cin, cout, scale=0.2)
+    bias = rnd(cout)
+    kw = {}
+    if c2:
+        kw["pair"] = (rnd(b, d, c2, h * w).to(torch.bfloat16),
+                      rnd(3, 3, 3, c2, cout, scale=0.2), rnd(c2))
+    if affine:
+        kw["in_affine"] = (rnd(b, cin).abs() + 0.5, rnd(b, cin, scale=0.3))
+    before = conv3d_cs.launches
+    got, st = conv3d_cs(x, wt, bias, h=h, w=w, emit_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert conv3d_cs.launches == before + 1
+    want, st_want = conv3d_cs_reference(x, wt, bias, h=h, w=w,
+                                        emit_stats=True, **kw)
+    assert _ulps(got, want) <= 1.0
+    torch.testing.assert_close(
+        st, st_want, rtol=1e-3, atol=1e-3 * float(st_want.abs().max())
+    )
+
+
+def test_conv3d_cs_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(1, 2, 3, 16, dtype=torch.float32, device=dev)
+    wt = torch.zeros(3, 3, 3, 3, 4, device=dev)
+    with pytest.raises(TypeError):
+        conv3d_cs(x, wt, None, h=4, w=4)
+    with pytest.raises(ValueError):
+        conv3d_cs(x.to(torch.bfloat16), wt, None, h=4, w=5)
