@@ -23,7 +23,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
              parity binaries differ only inside the measured logit margin;
              one more fast run under torch.profiler gives the device time by
              kernel (phase "profile").
-6. the {"kernels": [...]} line, the nvidia-smi line, then the result line.
+6. fused   — stage 2 in parity with BasicUNetConfig(fused_in_mish=True) on
+             the same volume: 18 instance_norm_mish launches per forward
+             batch, no conv3d_cs, binaries equal to phase 5's parity run
+             wherever |logit| > 1e-3.
+7. in_mish — instance_norm_mish against its plain version at the 18
+             epilogue shapes of the full-width parity forward at the parity
+             window batch in f32 (rtol 1e-4, atol 1e-5), and at the level-0
+             and level-4 shapes in bf16 (one ULP at max(|value|, rms)).
+             Times the kernel, the plain version and F.instance_norm +
+             F.mish (a yardstick only; the port never calls them).
+8. fallback — fast mode on 4 windows of (100, 100, 60), which do not divide
+             by 16, with fused_in_mish: the bf16 forward on the bf16 kernel,
+             against the f32 parity forward with phase 4's bound.
+9. stream  — a (768, 480, 384) disk memmap: stage 2 fast streamed in 4 slabs
+             (LOAD_ALL_RAM false), then in device memory; sigmoid within
+             1e-5, binaries equal outside the 1e-3 logit band; then a resume
+             from a hand-written sidecar at slab 2 over corrupted outputs,
+             held to the same standard; one more streamed run under
+             torch.profiler gives the device's idle share.
+10. the {"kernels": [...]} line, the nvidia-smi line, then the result line.
+
+Every time, rate and memory figure is printed beside the card's name and
+power limit (the "card" key).
 """
 
 from __future__ import annotations
@@ -44,7 +66,10 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 ROI = (96, 96, 64)
 VOLUME = (192, 480, 384)
+STREAM_VOLUME = (768, 480, 384)  # 15 window z-starts: 4 slabs of 4 rows
+FALLBACK_WINDOW = (100, 100, 60)  # not divisible by 16
 SEED = 0
+BAND = 1e-3  # |logit| inside which sums in another order may flip a voxel
 
 
 def emit(obj) -> None:
@@ -102,7 +127,7 @@ def ulp_error(got, want):
     return float(((g - w).abs() / ulp).max()), float((g - w).abs().max())
 
 
-def check_conv(name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
+def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
                affine=False, chunk=16):
     """One conv3d_cs case against the plain version (batch-chunked so the
     f32 reference fits beside the full-batch tensors); returns a row."""
@@ -159,7 +184,7 @@ def check_conv(name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
     library_ms = timed_ms(lambda: torch.nn.functional.conv3d(x5, w5, padding=1))
     del x5, xin
     bms, by = bound_ms(b, d, s, cin, cout, emit_stats)
-    row = dict(phase="kernel", case=name, b=b, d=d, h=h, w=w, c_in=cin,
+    row = dict(phase="kernel", card=card, case=name, b=b, d=d, h=h, w=w, c_in=cin,
                c_out=cout, pair=bool(c2), emit_stats=emit_stats, in_affine=affine,
                max_ulps=ulps, max_abs_err=err, stats_tol_ratio=st_ratio,
                ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
@@ -191,14 +216,205 @@ def profile_summary(prof, wall_s, top=12):
                 top=[[name[:70], round(ms, 3), n] for ms, n, name in rows[:top]])
 
 
-def make_volume():
-    """(192, 480, 384) uint16: uniform 100..1000 in the low-y half, zeros in
-    the other (the brain-like volume bench.py measures), from the seed."""
+def make_volume(shape=VOLUME):
+    """uint16: uniform 100..1000 in the low-y half, zeros in the other (the
+    brain-like volume bench.py measures at (192, 480, 384)), from the seed."""
     rng = np.random.default_rng(SEED)
-    z, y, x = VOLUME
-    vol = np.zeros(VOLUME, np.uint16)
+    z, y, x = shape
+    vol = np.zeros(shape, np.uint16)
     vol[:, : y // 2] = (rng.random((z, y // 2, x), np.float32) * 900 + 100).astype(np.uint16)
     return vol
+
+
+def write_brain(root, vol):
+    """The stage-1 output layout run_inference reads, as a disk memmap."""
+    in_dir = os.path.join(root, "in", "brain", "masked_niftis")
+    os.makedirs(in_dir)
+    mm = np.lib.format.open_memmap(os.path.join(in_dir, "masked_nifti.npy"),
+                                   mode="w+", dtype=np.uint16,
+                                   shape=(1, 1, *vol.shape))
+    mm[0, 0] = vol
+    mm.flush()
+
+
+def stage2(root, out, sd, precision="auto", load_all_ram=True, model_cfg=None):
+    """One run_inference over ``root``'s brain into ``out``: (seconds, peak
+    device GiB, binaries, sigmoid outputs)."""
+    from delivr_cfos_tpu_torch.config import PipelineConfig
+    from delivr_cfos_tpu_torch.pipeline.stage02_inference import run_inference
+
+    cfg = PipelineConfig.from_dict({
+        "blob_detection": {
+            "input_location": os.path.join(root, "in"),
+            "output_location": os.path.join(root, out),
+            "window_dimensions": dict(zip(
+                ("window_dim_0", "window_dim_1", "window_dim_2"), ROI)),
+            "precision": precision,
+        },
+        "FLAGS": {"ABSPATHS": True, "TEST_TIME_AUGMENTATION": False,
+                  "SAVE_ACTIVATED_OUTPUT": True, "LOAD_ALL_RAM": load_all_ram},
+    })
+    shape = np.load(os.path.join(root, "in", "brain", "masked_niftis",
+                                 "masked_nifti.npy"), mmap_mode="r").shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    session = run_inference(cfg, "brain", shape, params=sd, model_cfg=model_cfg)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bdir = os.path.join(session, "binary_segmentations")
+    return (seconds, peak, np.load(os.path.join(bdir, "binaries.npy")),
+            np.load(os.path.join(bdir, "network_output.npy")))
+
+
+def logit_of(sig):
+    s = sig.astype(np.float64)
+    return np.log(np.clip(s, 1e-300, None)) - np.log(np.clip(1 - s, 1e-300, None))
+
+
+def forward_batches(vol, batch, device):
+    """Forward batches the in-memory engine runs over ``vol``'s active
+    windows (TTA off)."""
+    from delivr_cfos_tpu_torch.engine.sliding_window import (
+        _forward_chunk_batches, dense_patch_starts,
+    )
+
+    n_active = sum(
+        1 for z, y, x in dense_patch_starts(vol.shape, ROI, 0.5)
+        if vol[z:z + ROI[0], y:y + ROI[1], x:x + ROI[2]].max() > 0
+    )
+    chunk = _forward_chunk_batches(ROI, batch, device) * batch
+    return n_active, sum(math.ceil(min(chunk, n_active - lo) / batch)
+                         for lo in range(0, n_active, chunk))
+
+
+def check_in_mish(card, name, n, c, d, h, w, dtype, chunk=8):
+    """One instance_norm_mish case against the plain version (batch-chunked
+    so the f32 reference fits beside the full-batch tensors); returns a
+    row."""
+    from delivr_cfos_tpu_torch.ops.instance_norm_mish import (
+        instance_norm_mish, instance_norm_mish_reference,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()))
+    x = (torch.randn((n, c, d, h, w), generator=g, device=dev) * 2 + 0.3).to(dtype)
+    scale = torch.rand((c,), generator=g, device=dev) + 0.5
+    bias = torch.randn((c,), generator=g, device=dev) * 0.2
+    got = instance_norm_mish(x, scale, bias)
+    torch.cuda.synchronize()
+    err = ratio = ulps = plain_ms = 0.0
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for lo in range(0, n, chunk):
+        sl = slice(lo, min(lo + chunk, n))
+        ev0.record()
+        want = instance_norm_mish_reference(x[sl], scale, bias)
+        ev1.record()
+        torch.cuda.synchronize()
+        plain_ms += ev0.elapsed_time(ev1)
+        diff = (got[sl].float() - want.float()).abs()
+        err = max(err, float(diff.max()))
+        if dtype == torch.float32:  # rtol 1e-4, atol 1e-5: ratio ≤ 1 passes
+            ratio = max(ratio, float((diff / (1e-5 + 1e-4 * want.abs())).max()))
+        else:
+            ulps = max(ulps, ulp_error(got[sl], want)[0])
+        del want, diff
+    finite = bool(torch.isfinite(got.float()).all())
+    ms = timed_ms(lambda: instance_norm_mish(x, scale, bias))
+    # yardstick: two library calls, which the port never makes
+    sc, bi = scale.to(dtype), bias.to(dtype)
+    library_ms = timed_ms(lambda: torch.nn.functional.mish(
+        torch.nn.functional.instance_norm(x, weight=sc, bias=bi, eps=1e-5)))
+    nbytes = 2.0 * x.numel() * x.element_size()
+    row = dict(phase="in_mish", card=card, case=name, shape=[n, c, d, h, w],
+               dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
+               tol_ratio=ratio, max_ulps=ulps, finite=finite, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes",
+               gbytes_per_s=nbytes / ms / 1e6)
+    emit(row)
+    if ratio > 1.0 or ulps > 1.0 or not finite:
+        raise AssertionError(f"instance_norm_mish disagrees with its plain version: {row}")
+    del x, got
+    return row
+
+
+def stream_phase(card, sd, dev):
+    """Phase 9: stage 2 fast streamed from a disk memmap, then in device
+    memory on the same file, then resumed from a hand-written sidecar."""
+    from delivr_cfos_tpu_torch.engine import streaming
+    from delivr_cfos_tpu_torch.engine.sliding_window import (
+        auto_batch_size, dense_patch_starts,
+    )
+    from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs
+
+    fast_cfg = BasicUNetConfig(precision="fast")
+    svol = make_volume(STREAM_VOLUME)
+    z_starts = len(dense_patch_starts((STREAM_VOLUME[0], *ROI[1:]), ROI, 0.5))
+    slab_planes = 3 * ROI[0] // 2 + ROI[0]  # 4 window rows at stride 48
+    slab_batch = auto_batch_size(
+        ROI, fast_cfg, slab_planes * STREAM_VOLUME[1] * STREAM_VOLUME[2] * 2, device=dev)
+    mem_batch = auto_batch_size(ROI, fast_cfg, svol.nbytes, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_brain(tmp, svol)
+        del svol
+        conv3d_cs.launches = 0
+        sec_st, peak_st, bin_st, sig_st = stage2(tmp, "stream", sd, load_all_ram=False)
+        stream_launches = conv3d_cs.launches
+        sec_mem, peak_mem, bin_mem, sig_mem = stage2(tmp, "memory", sd)
+
+        # resume: the sidecar an interruption after slab 1 leaves, over
+        # outputs corrupted beyond it
+        bdir = os.path.join(tmp, "stream", "brain", "binary_segmentations")
+        sw_cfg = streaming.SlidingWindowConfig(roi=ROI, overlap=0.5, tta=False)
+        finalized = 2 * 4 * ROI[0] // 2
+        with open(os.path.join(bdir, "streaming_resume.json"), "w") as f:
+            json.dump({"sig": streaming.resume_signature(
+                sw_cfg, STREAM_VOLUME, STREAM_VOLUME, 4, slab_batch),
+                "next_slab": 2, "finalized": finalized}, f)
+        for name, bad in (("binaries.npy", 255), ("network_output.npy", -1.0)):
+            mm = np.load(os.path.join(bdir, name), mmap_mode="r+")
+            mm[finalized:] = bad
+            mm.flush()
+            del mm
+        sec_res, _, bin_res, sig_res = stage2(tmp, "stream", sd, load_all_ram=False)
+        resumed = not os.path.exists(os.path.join(bdir, "streaming_resume.json"))
+
+        with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA,
+        ]) as prof:
+            sec_traced, _, _, _ = stage2(tmp, "stream_traced", sd, load_all_ram=False)
+        emit(dict(profile_summary(prof, sec_traced), card=card, run="stream fast"))
+        del prof
+
+    band = np.abs(logit_of(sig_mem)) <= BAND
+    s_vox = int(np.prod(STREAM_VOLUME))
+    sig_dev = float(np.abs(sig_st - sig_mem).max())
+    res_dev = float(np.abs(sig_res - sig_st).max())
+    ok_st = sig_dev <= 1e-5 and bool((bin_st[~band] == bin_mem[~band]).all())
+    ok_res = res_dev <= 1e-5 and bool((bin_res[~band] == bin_st[~band]).all())
+    emit(dict(phase="stream", card=card, volume=list(STREAM_VOLUME), z_starts=z_starts,
+              slabs=-(-z_starts // 4), conv3d_cs_launches=stream_launches,
+              batch_stream=slab_batch, batch_memory=mem_batch,
+              seconds_stream=sec_st, gvox_per_s_stream=s_vox / sec_st / 1e9,
+              peak_gib_stream=peak_st, seconds_memory=sec_mem,
+              gvox_per_s_memory=s_vox / sec_mem / 1e9, peak_gib_memory=peak_mem,
+              max_sigmoid_dev=sig_dev, voxels_in_band=int(band.sum()),
+              differing_voxels=int((bin_st != bin_mem).sum()),
+              positives=int(bin_st.sum()), seconds_resume=sec_res,
+              resume_max_sigmoid_dev=res_dev, resume_bit_identical=bool(
+                  np.array_equal(bin_res, bin_st) and np.array_equal(sig_res, sig_st)),
+              sidecar_removed=resumed))
+    if stream_launches < 18:
+        raise AssertionError("the streamed stage 2 launched no conv3d_cs")
+    if not (ok_st and np.isfinite(sig_st).all() and bin_st.shape == STREAM_VOLUME):
+        raise AssertionError("streamed stage 2 disagrees with the in-memory run")
+    if not (ok_res and resumed):
+        raise AssertionError("the resumed stream disagrees with the uninterrupted one")
+
+    return stream_launches
 
 
 def main() -> int:
@@ -206,17 +422,16 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from delivr_cfos_tpu_torch.config import PipelineConfig
     from delivr_cfos_tpu_torch.engine.sliding_window import (
-        _forward_chunk_batches, auto_batch_size, dense_patch_starts,
+        auto_batch_size, dense_patch_starts,
     )
     from delivr_cfos_tpu_torch.models.basic_unet import (
-        BasicUNetConfig, build_model, init_state_dict,
+        BasicUNetConfig, basic_unet_apply, build_model, init_state_dict,
     )
     from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
     from delivr_cfos_tpu_torch.ops import _build
     from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs
-    from delivr_cfos_tpu_torch.pipeline.stage02_inference import run_inference
+    from delivr_cfos_tpu_torch.ops.instance_norm_mish import instance_norm_mish
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -233,11 +448,11 @@ def main() -> int:
     vol = make_volume()
     fast_cfg = BasicUNetConfig(precision="fast")
     batch = auto_batch_size(ROI, fast_cfg, vol.nbytes, device=dev)
-    rows = [check_conv(n, batch, d, h, w, c1, c2, co)
+    rows = [check_conv(smi, n, batch, d, h, w, c1, c2, co)
             for n, _, c1, c2, co, d, h, w in conv_shapes(fast_cfg.features, ROI)]
     extra = [
-        check_conv("conv_0.1/no_stats", batch, 96, 96, 64, 32, 0, 32, emit_stats=False),
-        check_conv("down_1.1/in_affine", batch, 48, 48, 32, 32, 0, 32, affine=True),
+        check_conv(smi, "conv_0.1/no_stats", batch, 96, 96, 64, 32, 0, 32, emit_stats=False),
+        check_conv(smi, "down_1.1/in_affine", batch, 48, 48, 32, 32, 0, 32, affine=True),
     ]
     torch.cuda.empty_cache()
 
@@ -255,70 +470,41 @@ def main() -> int:
         parity = model(xw)
     dev_max = float((fast - parity).abs().max())
     scale = float(parity.abs().mean()) + 1e-3
-    emit(dict(phase="model", windows=int(xw.shape[0]), max_abs_dev=dev_max,
+    emit(dict(phase="model", card=smi, windows=int(xw.shape[0]), max_abs_dev=dev_max,
               mean_abs_dev=float((fast - parity).abs().mean()),
               parity_mean_abs=scale - 1e-3, rel_dev=dev_max / scale,
               finite=bool(torch.isfinite(fast).all())))
     if not torch.isfinite(fast).all() or dev_max / scale >= 0.5:
         raise AssertionError("fast forward strays from parity beyond 0.5 × mean |logit|")
-    del model, xw, fast, parity
+    del xw, fast, parity
     torch.cuda.empty_cache()
 
-    # --- 5. stage 2 through run_inference -----------------------------------
-    n_active = sum(
-        1 for z, y, x in starts
-        if vol[z:z + ROI[0], y:y + ROI[1], x:x + ROI[2]].max() > 0
-    )
-    chunk = _forward_chunk_batches(ROI, batch, dev) * batch
-    n_batches = sum(math.ceil(min(chunk, n_active - lo) / batch)
-                    for lo in range(0, n_active, chunk))
+    # --- 5. stage 2 through run_inference, and 6. fused parity ---------------
+    n_active, n_batches = forward_batches(vol, batch, dev)
+    parity_batch = auto_batch_size(ROI, BasicUNetConfig(), vol.nbytes, device=dev)
+    _, n_batches_par = forward_batches(vol, parity_batch, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        in_dir = os.path.join(tmp, "in", "brain", "masked_niftis")
-        os.makedirs(in_dir)
-        mm = np.lib.format.open_memmap(os.path.join(in_dir, "masked_nifti.npy"),
-                                       mode="w+", dtype=np.uint16,
-                                       shape=(1, 1, *VOLUME))
-        mm[0, 0] = vol
-        mm.flush()
-        del mm
-
-        peak_gib = {}
-
-        def run(precision, out):
-            cfg = PipelineConfig.from_dict({
-                "blob_detection": {
-                    "input_location": os.path.join(tmp, "in"),
-                    "output_location": os.path.join(tmp, out),
-                    "window_dimensions": dict(zip(
-                        ("window_dim_0", "window_dim_1", "window_dim_2"), ROI)),
-                    "precision": precision,
-                },
-                "FLAGS": {"ABSPATHS": True, "TEST_TIME_AUGMENTATION": False,
-                          "SAVE_ACTIVATED_OUTPUT": True},
-            })
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            session = run_inference(cfg, "brain", (1, 1, *VOLUME), params=sd)
-            seconds = time.perf_counter() - t0
-            peak_gib[precision] = torch.cuda.max_memory_allocated() / 2**30
-            bdir = os.path.join(session, "binary_segmentations")
-            return (seconds, np.load(os.path.join(bdir, "binaries.npy")),
-                    np.load(os.path.join(bdir, "network_output.npy")))
-
+        write_brain(tmp, vol)
         conv3d_cs.launches = 0
-        sec_fast, bin_fast, sig_fast = run("auto", "fast")
+        sec_fast, peak_fast, bin_fast, sig_fast = stage2(tmp, "fast", sd)
         launches = conv3d_cs.launches
-        sec_fast_warm, _, _ = run("auto", "fast_warm")
-        sec_parity, bin_par, sig_par = run("parity", "parity")
+        sec_fast_warm, _, _, _ = stage2(tmp, "fast_warm", sd)
+        sec_parity, peak_par, bin_par, sig_par = stage2(tmp, "parity", sd, "parity")
 
         # where stage 2's device time goes: one more fast run, traced
         with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA,
         ]) as prof:
-            sec_traced, _, _ = run("auto", "fast_traced")
-        emit(profile_summary(prof, sec_traced))
+            sec_traced, _, _, _ = stage2(tmp, "fast_traced", sd)
+        emit(dict(profile_summary(prof, sec_traced), card=smi, run="stage2 fast"))
+        del prof
+
+        # the fused epilogue's path: counts reset just before, read just after
+        instance_norm_mish.launches = conv3d_cs.launches = 0
+        sec_fused, peak_fused, bin_fused, sig_fused = stage2(
+            tmp, "fused", sd, model_cfg=BasicUNetConfig(fused_in_mish=True))
+        fused_launches, fused_conv = instance_norm_mish.launches, conv3d_cs.launches
 
     flipped = bin_fast != bin_par
     margin = float(np.abs(sig_fast - sig_par).max())
@@ -330,7 +516,7 @@ def main() -> int:
               seconds_fast=sec_fast, seconds_fast_warm=sec_fast_warm,
               gvox_per_s_fast=n_vox / sec_fast_warm / 1e9,
               seconds_parity=sec_parity, gvox_per_s_parity=n_vox / sec_parity / 1e9,
-              peak_gib_fast=peak_gib["auto"], peak_gib_parity=peak_gib["parity"],
+              peak_gib_fast=peak_fast, peak_gib_parity=peak_par,
               binaries_dtype=str(bin_fast.dtype), binaries_shape=list(bin_fast.shape),
               positives_fast=int(bin_fast.sum()), positives_parity=int(bin_par.sum()),
               flipped_voxels=int(flipped.sum()), sigmoid_margin=margin,
@@ -341,6 +527,61 @@ def main() -> int:
         raise AssertionError("binaries.npy has the wrong shape or dtype")
     if not (np.isfinite(sig_fast).all() and inside):
         raise AssertionError("fast binaries flip outside the fast-vs-parity margin")
+
+    band = np.abs(logit_of(sig_par)) <= BAND
+    fused_ok = bool((bin_fused[~band] == bin_par[~band]).all())
+    emit(dict(phase="fused", card=smi, volume=list(VOLUME), batch=parity_batch,
+              forward_batches=n_batches_par, in_mish_launches=fused_launches,
+              conv3d_cs_launches=fused_conv, seconds=sec_fused,
+              gvox_per_s=n_vox / sec_fused / 1e9, peak_gib=peak_fused,
+              voxels_in_band=int(band.sum()),
+              differing_voxels=int((bin_fused != bin_par).sum()),
+              max_sigmoid_dev=float(np.abs(sig_fused - sig_par).max()),
+              equal_outside_band=fused_ok))
+    if fused_launches != 18 * n_batches_par or fused_conv:
+        raise AssertionError(
+            f"fused parity stage 2: {fused_launches} instance_norm_mish launches "
+            f"for {n_batches_par} forward batches, {fused_conv} conv3d_cs")
+    if not (fused_ok and np.isfinite(sig_fused).all()):
+        raise AssertionError("fused binaries differ from parity outside the logit band")
+    del bin_fast, sig_fast, bin_par, sig_par, bin_fused, sig_fused
+
+    # --- 7. instance_norm_mish vs plain at the fused forward's shapes -------
+    f32_rows = [check_in_mish(smi, n, parity_batch, co, d, h, w, torch.float32)
+                for n, _, _, _, co, d, h, w in conv_shapes(fast_cfg.features, ROI)]
+    shapes = conv_shapes(fast_cfg.features, ROI)
+    bf16_rows = [check_in_mish(smi, f"{n}/bf16", batch, co, d, h, w, torch.bfloat16)
+                 for n, lvl, _, _, co, d, h, w in (shapes[1], shapes[9])]
+    torch.cuda.empty_cache()
+
+    # --- 8. fast fallback: bf16 forward with the fused epilogue -------------
+    fz, fy, fx = FALLBACK_WINDOW
+    wins = np.stack([vol[z:z + fz, y:y + fy, x:x + fx] for z, y, x in
+                     [(0, 0, 0), (40, 60, 100), (90, 130, 200), (92, 140, 324)]])
+    xw = torch.from_numpy(wins.astype(np.float32))[..., None].to(dev)
+    instance_norm_mish.launches = conv3d_cs.launches = 0
+    with torch.no_grad():
+        fb = basic_unet_apply(model, xw, BasicUNetConfig(
+            precision="fast", fused_in_mish=True))
+        fb_launches = instance_norm_mish.launches
+        parity = model(xw)
+    dev_max = float((fb.float() - parity).abs().max())
+    scale = float(parity.abs().mean()) + 1e-3
+    emit(dict(phase="fallback", card=smi, window=list(FALLBACK_WINDOW), windows=int(xw.shape[0]),
+              dtype=str(fb.dtype), in_mish_launches=fb_launches,
+              conv3d_cs_launches=conv3d_cs.launches, max_abs_dev=dev_max,
+              mean_abs_dev=float((fb.float() - parity).abs().mean()),
+              parity_mean_abs=scale - 1e-3, rel_dev=dev_max / scale,
+              finite=bool(torch.isfinite(fb.float()).all())))
+    if fb.dtype != torch.bfloat16 or fb_launches != 18 or conv3d_cs.launches:
+        raise AssertionError("the fallback did not run the bf16 forward on the kernel")
+    if not torch.isfinite(fb.float()).all() or dev_max / scale >= 0.5:
+        raise AssertionError("fallback forward strays from parity beyond 0.5 × mean |logit|")
+    del model, xw, fb, parity, vol
+    torch.cuda.empty_cache()
+
+    # --- 9. out-of-core streaming stage 2 against in device memory ---------
+    stream_phase(smi, sd, dev)
 
     by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
     emit({"kernels": [{
@@ -356,6 +597,19 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in rows),
         "bound_by": "operations" if by_ops * 2 >= sum(r["bound_ms"] for r in rows) else "bytes",
         "library_ms": sum(r["library_ms"] for r in rows),
+    }, {
+        "name": "instance_norm_mish",
+        "route": "cuda",
+        "source": "delivr_cfos_tpu_torch/csrc/instance_norm_mish.cu",
+        "replaces": "delivr_cfos_tpu/ops/pallas/fused_norm_mish.py:59",
+        "launches": fused_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in f32_rows + bf16_rows),
+        # one parity forward batch: the sum over its 18 epilogue shapes
+        "ms": sum(r["ms"] for r in f32_rows),
+        "plain_ms": sum(r["plain_ms"] for r in f32_rows),
+        "bound_ms": sum(r["bound_ms"] for r in f32_rows),
+        "bound_by": "bytes",
+        "library_ms": sum(r["library_ms"] for r in f32_rows),
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -446,52 +446,77 @@ def infer_volume(model: BasicUNet, volume: np.ndarray,
     volume, pads = _reflect_pad(volume, roi)
     image_size = tuple(volume.shape)
     interval = scan_interval(image_size, roi, cfg.overlap)
-    starts = dense_patch_starts(image_size, roi, cfg.overlap)
+    dims = [_dim_starts(image_size[d], roi[d], interval[d]) for d in range(3)]
     vol, u16 = _upload_volume(volume, device)
     batch = cfg.batch_size or auto_batch_size(
         roi, model_cfg, vol.numel() * vol.element_size(), device=device
     )
     imp = _importance_for(cfg, device)
-    acc = torch.zeros(image_size, dtype=torch.float32, device=device)
-    cnt = torch.zeros(
-        image_size, dtype=torch.float32 if imp is not None else torch.int32,
-        device=device,
-    )
-
-    maxes = torch.stack(
-        [_values(_window(vol, s, roi), u16).amax() for s in starts]
-    ).cpu().numpy()
-    active_mask = maxes > cfg.background_threshold
-    passes = _tta_passes(cfg)
+    acc, cnt = _zero_accumulators(image_size, imp, device)
     gen = torch.Generator(device=device)
     gen.manual_seed(cfg.seed)
-
-    plan = _dense_plan_for(image_size, roi, interval)
-    if plan is not None:
-        _infer_dense(model, vol, u16, acc, cnt, starts, active_mask, plan,
-                     gen, cfg, passes, batch, roi, model_cfg, imp)
-    else:
-        _skip_accumulate(acc, cnt, starts[~active_mask], roi, len(passes), imp)
-        active = starts[active_mask]
-        chunk = _forward_chunk_batches(roi, batch, device) * batch
-        for use_noise, flip_axis in passes:
-            for lo in range(0, len(active), chunk):
-                flat = _forward_windows(
-                    model, vol, u16, active[lo : lo + chunk], batch, roi,
-                    use_noise, flip_axis, cfg.tta_noise_std, gen, model_cfg,
-                )
-                _tail_accumulate(
-                    acc, cnt, flat, range(flat.shape[0]),
-                    active[lo : lo + chunk], roi, imp,
-                )
+    _accumulate(model, vol, u16, acc, cnt, dims, interval, gen, cfg, batch,
+                model_cfg, imp)
 
     sl = tuple(slice(pads[i][0], pads[i][0] + orig_shape[i]) for i in range(3))
     mean_logits = _divide(acc, cnt)[sl]
     binaries = None
     if return_binary:
-        nonzero = vol[sl] != 0 if u16 else vol[sl] > 0
         binaries = binarize_logits(
-            mean_logits, nonzero, threshold=cfg.threshold,
+            mean_logits, _nonzero(vol[sl], u16), threshold=cfg.threshold,
             erosion_iters=cfg.erosion_iters,
         )
     return mean_logits, binaries
+
+
+def _zero_accumulators(shape, imp, device):
+    """f32 logit sums and the count map: int32 window counts, or f32 weight
+    sums under gaussian importance."""
+    acc = torch.zeros(shape, dtype=torch.float32, device=device)
+    cnt = torch.zeros(
+        shape, dtype=torch.float32 if imp is not None else torch.int32,
+        device=device,
+    )
+    return acc, cnt
+
+
+def _nonzero(t, u16: bool):
+    """input > 0 of a device volume slice (uint16 bits are nonzero ⇔ > 0)."""
+    return t != 0 if u16 else t > 0
+
+
+def _accumulate(model, vol, u16, acc, cnt, dims, interval, gen, cfg, batch,
+                model_cfg, imp):
+    """Every pass of every window of the grid ``dims`` (per-dim start lists,
+    local to ``vol``) into ``acc``/``cnt`` in place: background windows as
+    constant skips, the rest through the model, dense phase-sum accumulation
+    where the stride divides the roi and per-window accumulation otherwise."""
+    roi = tuple(cfg.roi)
+    starts = np.array(
+        [(z, y, x) for z in dims[0] for y in dims[1] for x in dims[2]],
+        dtype=np.int32,
+    )
+    maxes = torch.stack(
+        [_values(_window(vol, s, roi), u16).amax() for s in starts]
+    ).cpu().numpy()
+    active_mask = maxes > cfg.background_threshold
+    passes = _tta_passes(cfg)
+
+    if _dense_applicable(roi, interval):
+        plan = _DensePlan(dims, roi, interval)
+        _infer_dense(model, vol, u16, acc, cnt, starts, active_mask, plan,
+                     gen, cfg, passes, batch, roi, model_cfg, imp)
+        return
+    _skip_accumulate(acc, cnt, starts[~active_mask], roi, len(passes), imp)
+    active = starts[active_mask]
+    chunk = _forward_chunk_batches(roi, batch, acc.device) * batch
+    for use_noise, flip_axis in passes:
+        for lo in range(0, len(active), chunk):
+            flat = _forward_windows(
+                model, vol, u16, active[lo : lo + chunk], batch, roi,
+                use_noise, flip_axis, cfg.tta_noise_std, gen, model_cfg,
+            )
+            _tail_accumulate(
+                acc, cnt, flat, range(flat.shape[0]),
+                active[lo : lo + chunk], roi, imp,
+            )

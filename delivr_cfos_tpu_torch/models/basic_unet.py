@@ -7,13 +7,18 @@ dropout=0.1, act="mish")`` and runs it under ``model.eval()``
 instance norm uses per-sample statistics. ``BasicUNet`` keeps MONAI's module
 names, so a reference checkpoint loads by key.
 
-Two forwards, both taking (N, D, H, W, C_in) like the JAX package's
+Forwards, all taking (N, D, H, W, C_in) like the JAX package's
 ``basic_unet_apply``:
 
 - parity (``BasicUNet.forward``): float32 throughout, convolutions without
   TF32 (the JAX parity path uses precision='highest');
 - fast (``models/basic_unet_cs.py::apply_cs``): bf16 activations, every
-  3×3×3 conv through the hand-written ``conv3d_cs`` CUDA kernel.
+  3×3×3 conv through the hand-written ``conv3d_cs`` CUDA kernel; windows
+  whose dims do not divide by 16 take the bf16 form of the parity forward,
+  as the JAX package's fast mode falls back to its bf16 ``_apply``.
+
+With ``fused_in_mish`` every conv-block epilogue of the parity forward and
+of its bf16 form runs the hand-written ``instance_norm_mish`` CUDA kernel.
 
 Topology (encoder features f0..f4, decoder feature f5):
 
@@ -35,10 +40,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from delivr_cfos_tpu_torch.ops.instance_norm_mish import IN_EPS, instance_norm_mish
 from delivr_cfos_tpu_torch.utils.device import full_f32
 
 DEFAULT_FEATURES = (32, 32, 64, 128, 256, 32)
-IN_EPS = 1e-5  # torch InstanceNorm3d default
 
 
 @dataclass(frozen=True)
@@ -49,6 +54,11 @@ class BasicUNetConfig:
     # 'parity': f32 forward; 'fast': bf16 activations with f32 accumulation
     # and f32 InstanceNorm statistics on the conv3d_cs kernel
     precision: str = "parity"
+    # every InstanceNorm + mish epilogue of the non-conv3d_cs forward (parity,
+    # and fast mode's fallback) through the instance_norm_mish kernel, as the
+    # JAX package's flag sends it through its Pallas kernel; apply_cs, which
+    # takes InstanceNorm from the conv's stats, ignores it as JAX's does
+    fused_in_mish: bool = False
 
 
 def mish(x: torch.Tensor) -> torch.Tensor:
@@ -74,8 +84,22 @@ class _ADN(nn.Module):
         super().__init__()
         self.N = nn.InstanceNorm3d(channels, affine=True, eps=IN_EPS)
 
-    def forward(self, x):
-        return mish(instance_norm(x, self.N.weight, self.N.bias))
+    def forward(self, x, fused: bool = False):
+        """Statistics and arithmetic in f32, output in ``x``'s dtype. Unfused,
+        the JAX package's two roundings (after the norm, after mish); fused,
+        the kernel's one."""
+        scale, bias = self.N.weight.detach(), self.N.bias.detach()
+        if fused:
+            return instance_norm_mish(x.contiguous(), scale, bias)
+        y = instance_norm(x.float(), scale, bias).to(x.dtype)
+        return mish(y.float()).to(x.dtype)
+
+
+def _conv(x, conv, **kw):
+    """``conv`` in ``x``'s dtype, its bias added after the conv's rounding
+    (the JAX package's ``conv + b.astype(x.dtype)``)."""
+    y = F.conv3d(x, conv.weight.to(x.dtype), **kw)
+    return y + conv.bias.to(x.dtype)[None, :, None, None, None]
 
 
 class _Convolution(nn.Module):
@@ -84,8 +108,8 @@ class _Convolution(nn.Module):
         self.conv = nn.Conv3d(cin, cout, kernel_size=3, padding=1, bias=True)
         self.adn = _ADN(cout)
 
-    def forward(self, x):
-        return self.adn(self.conv(x))
+    def forward(self, x, fused: bool = False):
+        return self.adn(_conv(x, self.conv, padding=1), fused)
 
 
 class _TwoConv(nn.Module):
@@ -94,8 +118,8 @@ class _TwoConv(nn.Module):
         self.conv_0 = _Convolution(cin, cmid)
         self.conv_1 = _Convolution(cmid, cout)
 
-    def forward(self, x):
-        return self.conv_1(self.conv_0(x))
+    def forward(self, x, fused: bool = False):
+        return self.conv_1(self.conv_0(x, fused), fused)
 
 
 class _Down(nn.Module):
@@ -104,8 +128,8 @@ class _Down(nn.Module):
         self.max_pooling = nn.MaxPool3d(2)
         self.convs = _TwoConv(cin, cout, cout)
 
-    def forward(self, x):
-        return self.convs(self.max_pooling(x))
+    def forward(self, x, fused: bool = False):
+        return self.convs(self.max_pooling(x), fused)
 
 
 class _Upsample(nn.Module):
@@ -114,7 +138,9 @@ class _Upsample(nn.Module):
         self.deconv = nn.ConvTranspose3d(cin, cout, kernel_size=2, stride=2)
 
     def forward(self, x):
-        return self.deconv(x)
+        d = self.deconv
+        y = F.conv_transpose3d(x, d.weight.to(x.dtype), stride=2)
+        return y + d.bias.to(x.dtype)[None, :, None, None, None]
 
 
 class _UpCat(nn.Module):
@@ -124,7 +150,7 @@ class _UpCat(nn.Module):
         self.upsample = _Upsample(cin, c_up)
         self.convs = _TwoConv(c_skip + c_up, cout, cout)
 
-    def forward(self, x, x_e):
+    def forward(self, x, x_e, fused: bool = False):
         x_0 = self.upsample(x)
         # MONAI pads the upsampled tensor by one (replicate) at the high end
         # of each dim where the encoder feature is larger (odd input sizes)
@@ -133,11 +159,11 @@ class _UpCat(nn.Module):
             pads += [0, x_e.shape[ax] - x_0.shape[ax]]
         if any(pads):
             x_0 = F.pad(x_0, pads, mode="replicate")
-        return self.convs(torch.cat([x_e, x_0], dim=1))
+        return self.convs(torch.cat([x_e, x_0], dim=1), fused)
 
 
 class BasicUNet(nn.Module):
-    """MONAI BasicUNet(3d, act=mish) at eval; f32 parity forward."""
+    """MONAI BasicUNet(3d, act=mish) at eval."""
 
     def __init__(self, config: BasicUNetConfig = BasicUNetConfig()):
         super().__init__()
@@ -154,32 +180,44 @@ class BasicUNet(nn.Module):
         self.upcat_1 = _UpCat(f[1], f[0], f[5], halves=False)
         self.final_conv = nn.Conv3d(f[5], config.out_channels, kernel_size=1)
 
-    def forward(self, x):
-        """``x``: (N, D, H, W, C_in) → f32 logits (N, D, H, W, C_out)."""
-        x = x.float().permute(0, 4, 1, 2, 3)
+    def forward(self, x, dtype=torch.float32, fused=None):
+        """``x``: (N, D, H, W, C_in) → logits (N, D, H, W, C_out) in ``dtype``.
+
+        f32 is the parity forward. bf16 is its fast-mode form, the
+        counterpart of the JAX ``_apply`` with compute_dtype bf16: bf16
+        activations, bf16 convolutions with f32 accumulation, biases added in
+        bf16, InstanceNorm statistics in f32. ``fused`` (default: the
+        model's config) sends every epilogue through ``instance_norm_mish``."""
+        if fused is None:
+            fused = self.config.fused_in_mish
+        x = x.to(dtype).permute(0, 4, 1, 2, 3)
         with full_f32():
-            x0 = self.conv_0(x)
-            x1 = self.down_1(x0)
-            x2 = self.down_2(x1)
-            x3 = self.down_3(x2)
-            x4 = self.down_4(x3)
-            u4 = self.upcat_4(x4, x3)
-            u3 = self.upcat_3(u4, x2)
-            u2 = self.upcat_2(u3, x1)
-            u1 = self.upcat_1(u2, x0)
-            logits = self.final_conv(u1)
+            x0 = self.conv_0(x, fused)
+            x1 = self.down_1(x0, fused)
+            x2 = self.down_2(x1, fused)
+            x3 = self.down_3(x2, fused)
+            x4 = self.down_4(x3, fused)
+            u4 = self.upcat_4(x4, x3, fused)
+            u3 = self.upcat_3(u4, x2, fused)
+            u2 = self.upcat_2(u3, x1, fused)
+            u1 = self.upcat_1(u2, x0, fused)
+            logits = _conv(u1, self.final_conv)
         return logits.permute(0, 2, 3, 4, 1)
 
 
 def basic_unet_apply(model: BasicUNet, x, config: BasicUNetConfig):
-    """Forward in the mode ``config.precision`` names."""
+    """Forward in the mode ``config.precision`` names. Fast mode runs
+    ``apply_cs`` where the window dims divide by 16 (its four pooling
+    levels) and the bf16 forward elsewhere, as the JAX package does."""
     if config.precision == "fast":
-        from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
+        if all(s % 16 == 0 for s in x.shape[1:4]):
+            from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
 
-        return apply_cs(model, x)
+            return apply_cs(model, x)
+        return model(x, torch.bfloat16, config.fused_in_mish)
     if config.precision != "parity":
         raise ValueError(f"unknown precision {config.precision!r}")
-    return model(x)
+    return model(x, torch.float32, config.fused_in_mish)
 
 
 def infer_model_config(state_dict) -> BasicUNetConfig:

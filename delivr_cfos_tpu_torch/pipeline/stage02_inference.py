@@ -8,9 +8,11 @@ The counterpart of ``delivr_cfos_tpu/pipeline/stage02_inference.py``
         float32 sigmoid outputs, only when FLAGS.SAVE_ACTIVATED_OUTPUT
 
 Weights may be the reference torch .tar checkpoint or the JAX package's .npz.
-This slice runs the whole volume in device memory. The out-of-core streaming
-branch and spatial sharding over several devices raise NotImplementedError:
-they are later items of ROADMAP.md ("Out-of-core streaming", "Multi-GPU").
+A volume runs in device memory when ``FLAGS.LOAD_ALL_RAM`` is set and it fits
+(the reference's switch, inference.py:240-247), else it streams z-slabs
+through ``engine/streaming.py`` straight into the disk outputs, resuming from
+the sidecar ``streaming_resume.json``. Spatial sharding over several devices
+raises NotImplementedError: a later item of ROADMAP.md ("Multi-GPU").
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from delivr_cfos_tpu_torch.engine.sliding_window import (
     _device_bytes,
     infer_volume,
 )
+from delivr_cfos_tpu_torch.engine.streaming import infer_volume_streaming
 from delivr_cfos_tpu_torch.models.basic_unet import (
     BasicUNetConfig,
     build_model,
@@ -76,16 +79,12 @@ def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
 
     volume = np.load(input_path, mmap_mode="r")[0, 0]
     real_z, real_y, real_x = stack_shape[2:]
+    real = (real_z, real_y, real_x)
     # input + f32 accumulator + i32 count ≈ 10 bytes/voxel must fit in 0.75
-    # of device memory beside the window batch; otherwise the reference
-    # streams z-slabs (inference.py:240-247)
+    # of device memory beside the window batch; otherwise, or without
+    # LOAD_ALL_RAM, z-slabs stream (reference: inference.py:240-247)
     device_bytes = int(_device_bytes(device)[0] * 0.75)
-    if not (cfg.FLAGS.LOAD_ALL_RAM and volume.size * 10 < device_bytes):
-        raise NotImplementedError(
-            f"volume {volume.shape} needs the out-of-core streaming engine, "
-            "which is not ported yet (ROADMAP.md, Modules to port: "
-            "'Out-of-core streaming')"
-        )
+    whole_volume_ok = cfg.FLAGS.LOAD_ALL_RAM and volume.size * 10 < device_bytes
     os.makedirs(binaries_path, exist_ok=True)
 
     if params is None:
@@ -105,41 +104,71 @@ def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
     )
     log(
         f"Inference for {mouse_name}: padded {volume.shape}, "
-        f"real ({real_z}, {real_y}, {real_x}), tta={sw_cfg.tta}, device={device}"
+        f"real {real}, tta={sw_cfg.tta}, device={device}, "
+        f"mode={'in device memory' if whole_volume_ok else 'streaming'}"
     )
-    mean_logits, _ = infer_volume(
-        model, np.asarray(volume), sw_cfg, model_cfg, return_binary=False
-    )
-    logits_real = mean_logits[:real_z, :real_y, :real_x]
-    # binarization over the REAL (unpadded) extent, reference create_nifti_seg
-    input_real = torch.from_numpy(
-        np.asarray(volume[:real_z, :real_y, :real_x]) > 0
-    ).to(device)
-
-    out = open_memmap(
-        os.path.join(binaries_path, "binaries.npy"),
-        shape=(real_z, real_y, real_x), dtype=np.uint8,
-    )
-    out[:] = binarize_logits(
-        logits_real, input_real, threshold=sw_cfg.threshold,
-        erosion_iters=sw_cfg.erosion_iters,
-    ).cpu().numpy()
-    out.flush()
-    del out
+    resume_path = os.path.join(binaries_path, "streaming_resume.json")
+    binaries_file = os.path.join(binaries_path, "binaries.npy")
+    activated_file = os.path.join(binaries_path, "network_output.npy")
+    # a live sidecar means a partly streamed binaries.npy is on disk: reopen
+    # it in place so that the finished chunks survive the resume
+    resuming = (not whole_volume_ok and os.path.exists(resume_path)
+                and _is_npy(binaries_file, real, np.uint8))
+    out = open_memmap(binaries_file, shape=real, dtype=np.uint8,
+                      mode="r+" if resuming else "w+")
+    activated = None
     if cfg.FLAGS.SAVE_ACTIVATED_OUTPUT:
         os.makedirs(os.path.join(session_path, "network_outputs"), exist_ok=True)
-        activated = open_memmap(
-            os.path.join(binaries_path, "network_output.npy"),
-            shape=(real_z, real_y, real_x), dtype=np.float32,
+        keep = resuming and _is_npy(activated_file, real, np.float32)
+        activated = open_memmap(activated_file, shape=real, dtype=np.float32,
+                                mode="r+" if keep else "w+")
+        if resuming and not keep:
+            os.remove(resume_path)  # no sigmoid output to resume into
+
+    if whole_volume_ok:
+        mean_logits, _ = infer_volume(
+            model, np.asarray(volume), sw_cfg, model_cfg, return_binary=False
         )
-        activated[:] = torch.sigmoid(logits_real).cpu().numpy()
+        logits_real = mean_logits[:real_z, :real_y, :real_x]
+        # binarization over the REAL (unpadded) extent, reference create_nifti_seg
+        input_real = torch.from_numpy(
+            np.asarray(volume[:real_z, :real_y, :real_x]) > 0
+        ).to(device)
+        out[:] = binarize_logits(
+            logits_real, input_real, threshold=sw_cfg.threshold,
+            erosion_iters=sw_cfg.erosion_iters,
+        ).cpu().numpy()
+        if activated is not None:
+            activated[:] = torch.sigmoid(logits_real).cpu().numpy()
+        # a brain interrupted mid-stream and completed here would otherwise
+        # keep its sidecar, and the runner's skip check (binaries exist AND
+        # no sidecar) would re-run it every launch
+        if os.path.exists(resume_path):
+            os.remove(resume_path)
+    else:
+        # out-of-core: finalized chunks go straight into the disk memmaps;
+        # no full-volume host buffer is made
+        infer_volume_streaming(
+            model, volume, sw_cfg, model_cfg, binary_out=out,
+            sigmoid_out=activated, out_shape=real,
+            resume_state_path=resume_path,
+        )
+    if activated is not None:
         activated.flush()
         del activated
-    # a brain interrupted mid-stream by the JAX package's streaming engine and
-    # completed here would otherwise keep its sidecar, and the runner's skip
-    # check (binaries exist AND no sidecar) would re-run it every launch
-    resume_path = os.path.join(binaries_path, "streaming_resume.json")
-    if os.path.exists(resume_path):
-        os.remove(resume_path)
+    out.flush()
+    del out
     log("Blob detection finished", mouse_name)
     return session_path
+
+
+def _is_npy(path: str, shape, dtype) -> bool:
+    """Whether ``path`` is a .npy of this shape and dtype (an output that a
+    resume may reopen in place)."""
+    if not os.path.exists(path):
+        return False
+    try:
+        mm = np.load(path, mmap_mode="r")
+    except (OSError, ValueError):
+        return False
+    return mm.shape == tuple(shape) and mm.dtype == np.dtype(dtype)

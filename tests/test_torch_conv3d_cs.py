@@ -14,6 +14,7 @@ import torch
 
 from delivr_cfos_tpu.ops.pallas.conv3d_cs import conv3d_cs as jax_conv3d_cs
 from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs, conv3d_cs_reference
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, D, H, W = 2, 5, 6, 8
 

@@ -12,6 +12,10 @@ import pytest
 import torch
 
 from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs, conv3d_cs_reference
+from delivr_cfos_tpu_torch.ops.instance_norm_mish import (
+    instance_norm_mish,
+    instance_norm_mish_reference,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +88,54 @@ def test_conv3d_cs_rejects_what_the_kernel_does_not_take(dev):
         conv3d_cs(x, wt, None, h=4, w=4)
     with pytest.raises(ValueError):
         conv3d_cs(x.to(torch.bfloat16), wt, None, h=4, w=5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 4, 8, 16, 32),  # aligned planes
+    (1, 3, 5, 7, 8),  # odd S = 105: scalar head and tail around the vectors
+    (2, 8, 1, 1, 1),  # one-voxel planes: variance 0
+    (1, 2, 96, 96, 64),  # a full-resolution plane, many vectors per thread
+])
+def test_instance_norm_mish_kernel_matches_plain_version(dev, dtype, shape):
+    """f32 within rtol 1e-4, atol 1e-5 (tests/test_pallas_kernels.py's
+    bound); bf16 within one ULP at max(|value|, rms), as for conv3d_cs."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=g) * 3 + 0.5).to(dev, dtype)
+    scale = (torch.rand(shape[1], generator=g) + 0.5).to(dev)
+    bias = (torch.randn(shape[1], generator=g) * 0.2).to(dev)
+    before = instance_norm_mish.launches
+    got = instance_norm_mish(x, scale, bias)
+    torch.cuda.synchronize()
+    assert instance_norm_mish.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = instance_norm_mish_reference(x, scale, bias)
+    assert torch.isfinite(got.float()).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        assert _ulps(got, want) <= 1.0
+    # the statistics reduce in a fixed order: the same bits on every launch
+    assert torch.equal(instance_norm_mish(x, scale, bias), got)
+
+
+def test_instance_norm_mish_kernel_on_a_misaligned_view(dev):
+    """A contiguous view that starts off a 16-byte boundary takes the scalar
+    path and gives the same values."""
+    base = torch.randn(1 + 2 * 3 * 40, device=dev)
+    x = base[1:].reshape(2, 3, 2, 4, 5)
+    scale, bias = torch.ones(3, device=dev), torch.zeros(3, device=dev)
+    torch.testing.assert_close(instance_norm_mish(x, scale, bias),
+                               instance_norm_mish_reference(x, scale, bias),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_instance_norm_mish_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(1, 2, 3, 4, 5, device=dev)
+    with pytest.raises(ValueError):
+        instance_norm_mish(x.transpose(2, 3), torch.ones(2, device=dev),
+                           torch.zeros(2, device=dev))
+    with pytest.raises(ValueError):
+        instance_norm_mish(x, torch.ones(3, device=dev), torch.zeros(3, device=dev))
+    with pytest.raises(TypeError):
+        instance_norm_mish(x.half(), torch.ones(2, device=dev), torch.zeros(2, device=dev))

@@ -28,6 +28,7 @@ from delivr_cfos_tpu_torch.ops.morphology import (
     binarize_logits,
     binary_erosion_cross,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = (4, 4, 8, 16, 32, 4)
 ROI = (16, 16, 16)

@@ -27,6 +27,7 @@ from delivr_cfos_tpu_torch.pipeline.stage02_inference import (
     resolve_model_config,
     run_inference,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = (4, 4, 8, 16, 32, 4)
 REAL = (14, 44, 40)
@@ -123,14 +124,18 @@ def test_resolve_model_config_modes():
 
 
 def test_streaming_and_sharded_branches_are_not_ported(brain):
+    """Only the sharded branch is left unported: the streaming branch runs
+    (tests/test_torch_streaming.py holds it against the JAX package), and
+    spatial_shards > 1 raises before any output is made, with or without
+    LOAD_ALL_RAM."""
     stack = (1, 1, *REAL)
-    sharded = brain("sharded/", spatial_shards=2)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        run_inference(PipelineConfig.from_dict(sharded), "brain", stack, device="cpu")
-    streaming = brain("streaming/")
-    streaming["FLAGS"]["LOAD_ALL_RAM"] = False
-    with pytest.raises(NotImplementedError, match="streaming"):
-        run_inference(PipelineConfig.from_dict(streaming), "brain", stack, device="cpu")
+    for load_all_ram in (True, False):
+        sharded = brain(f"sharded_{load_all_ram}/", spatial_shards=2)
+        sharded["FLAGS"]["LOAD_ALL_RAM"] = load_all_ram
+        cfg = PipelineConfig.from_dict(sharded)
+        with pytest.raises(NotImplementedError, match="Multi-GPU"):
+            run_inference(cfg, "brain", stack, device="cpu")
+        assert not os.path.exists(cfg.blob_detection.output_location)
 
 
 def test_cuda_requested_without_a_card_raises(brain):
@@ -146,6 +151,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys\n"
         "import delivr_cfos_tpu_torch.pipeline.stage02_inference\n"
         "import delivr_cfos_tpu_torch.models.basic_unet_cs\n"
+        "import delivr_cfos_tpu_torch.engine.streaming\n"
+        "import delivr_cfos_tpu_torch.ops.instance_norm_mish\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'delivr_cfos_tpu' or m.startswith('delivr_cfos_tpu.')]\n"

@@ -34,6 +34,7 @@ from delivr_cfos_tpu_torch.models.convert import (
     load_weights,
     state_dict_from_jax_params,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = (4, 4, 8, 16, 32, 4)
 
