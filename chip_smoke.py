@@ -35,13 +35,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
              F.mish (a yardstick only; the port never calls them).
 8. fallback — fast mode on 4 windows of (100, 100, 60), which do not divide
              by 16, with fused_in_mish: the bf16 forward on the bf16 kernel,
-             against the f32 parity forward with phase 4's bound.
+             against the f32 parity forward with phase 4's bound; then the
+             bf16 kernel against its plain version (one ULP) at the 18
+             epilogue shapes that forward gave it (phase "in_mish" rows and
+             their "in_mish_fallback" sum).
 9. stream  — a (768, 480, 384) disk memmap: stage 2 fast streamed in 4 slabs
              (LOAD_ALL_RAM false), then in device memory; sigmoid within
              1e-5, binaries equal outside the 1e-3 logit band; then a resume
              from a hand-written sidecar at slab 2 over corrupted outputs,
-             held to the same standard; one more streamed run under
-             torch.profiler gives the device's idle share.
+             held to the same standard, with fewer conv3d_cs launches than
+             the whole stream (a restart would launch as many); one more
+             streamed run under torch.profiler gives the device's idle
+             share.
 10. the {"kernels": [...]} line, the nvidia-smi line, then the result line.
 
 Every time, rate and memory figure is printed beside the card's name and
@@ -237,13 +242,11 @@ def write_brain(root, vol):
     mm.flush()
 
 
-def stage2(root, out, sd, precision="auto", load_all_ram=True, model_cfg=None):
-    """One run_inference over ``root``'s brain into ``out``: (seconds, peak
-    device GiB, binaries, sigmoid outputs)."""
+def pipeline_config(root, out, precision="auto", load_all_ram=True):
+    """The stage-2 config of a run over ``root``'s brain into ``out``."""
     from delivr_cfos_tpu_torch.config import PipelineConfig
-    from delivr_cfos_tpu_torch.pipeline.stage02_inference import run_inference
 
-    cfg = PipelineConfig.from_dict({
+    return PipelineConfig.from_dict({
         "blob_detection": {
             "input_location": os.path.join(root, "in"),
             "output_location": os.path.join(root, out),
@@ -254,6 +257,14 @@ def stage2(root, out, sd, precision="auto", load_all_ram=True, model_cfg=None):
         "FLAGS": {"ABSPATHS": True, "TEST_TIME_AUGMENTATION": False,
                   "SAVE_ACTIVATED_OUTPUT": True, "LOAD_ALL_RAM": load_all_ram},
     })
+
+
+def stage2(root, out, sd, precision="auto", load_all_ram=True, model_cfg=None):
+    """One run_inference over ``root``'s brain into ``out``: (seconds, peak
+    device GiB, binaries, sigmoid outputs)."""
+    from delivr_cfos_tpu_torch.pipeline.stage02_inference import run_inference
+
+    cfg = pipeline_config(root, out, precision, load_all_ram)
     shape = np.load(os.path.join(root, "in", "brain", "masked_niftis",
                                  "masked_nifti.npy"), mmap_mode="r").shape
     torch.cuda.synchronize()
@@ -346,17 +357,23 @@ def stream_phase(card, sd, dev):
     from delivr_cfos_tpu_torch.engine.sliding_window import (
         auto_batch_size, dense_patch_starts,
     )
-    from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig
     from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs
+    from delivr_cfos_tpu_torch.pipeline.stage02_inference import (
+        resolve_model_config, sliding_window_config,
+    )
 
-    fast_cfg = BasicUNetConfig(precision="fast")
     svol = make_volume(STREAM_VOLUME)
-    z_starts = len(dense_patch_starts((STREAM_VOLUME[0], *ROI[1:]), ROI, 0.5))
-    slab_planes = 3 * ROI[0] // 2 + ROI[0]  # 4 window rows at stride 48
-    slab_batch = auto_batch_size(
-        ROI, fast_cfg, slab_planes * STREAM_VOLUME[1] * STREAM_VOLUME[2] * 2, device=dev)
-    mem_batch = auto_batch_size(ROI, fast_cfg, svol.nbytes, device=dev)
+    z_starts = sorted({int(z) for z, _, _ in dense_patch_starts(STREAM_VOLUME, ROI, 0.5)})
+    k = streaming.SLAB_Z_STARTS
     with tempfile.TemporaryDirectory() as tmp:
+        # the window config, model config and batch run_inference resolves
+        # for the streamed run, so that the hand-written sidecar matches
+        pcfg = pipeline_config(tmp, "stream", load_all_ram=False)
+        sw_cfg = sliding_window_config(pcfg)
+        fast_cfg, _ = resolve_model_config(pcfg.blob_detection, sd, dev)
+        slab_batch = streaming.slab_batch_size(
+            sw_cfg, fast_cfg, STREAM_VOLUME, svol.itemsize, k, dev)
+        mem_batch = auto_batch_size(ROI, fast_cfg, svol.nbytes, device=dev)
         write_brain(tmp, svol)
         del svol
         conv3d_cs.launches = 0
@@ -365,21 +382,24 @@ def stream_phase(card, sd, dev):
         sec_mem, peak_mem, bin_mem, sig_mem = stage2(tmp, "memory", sd)
 
         # resume: the sidecar an interruption after slab 1 leaves, over
-        # outputs corrupted beyond it
+        # outputs corrupted beyond it; a resume runs fewer forward batches
+        # than the whole stream (a mismatched sidecar would restart)
         bdir = os.path.join(tmp, "stream", "brain", "binary_segmentations")
-        sw_cfg = streaming.SlidingWindowConfig(roi=ROI, overlap=0.5, tta=False)
-        finalized = 2 * 4 * ROI[0] // 2
+        finalized = z_starts[2 * k]
         with open(os.path.join(bdir, "streaming_resume.json"), "w") as f:
             json.dump({"sig": streaming.resume_signature(
-                sw_cfg, STREAM_VOLUME, STREAM_VOLUME, 4, slab_batch),
+                sw_cfg, STREAM_VOLUME, STREAM_VOLUME, k, slab_batch),
                 "next_slab": 2, "finalized": finalized}, f)
         for name, bad in (("binaries.npy", 255), ("network_output.npy", -1.0)):
             mm = np.load(os.path.join(bdir, name), mmap_mode="r+")
             mm[finalized:] = bad
             mm.flush()
             del mm
+        conv3d_cs.launches = 0
         sec_res, _, bin_res, sig_res = stage2(tmp, "stream", sd, load_all_ram=False)
-        resumed = not os.path.exists(os.path.join(bdir, "streaming_resume.json"))
+        res_launches = conv3d_cs.launches
+        resumed = (0 < res_launches < stream_launches and not os.path.exists(
+            os.path.join(bdir, "streaming_resume.json")))
 
         with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -395,8 +415,9 @@ def stream_phase(card, sd, dev):
     res_dev = float(np.abs(sig_res - sig_st).max())
     ok_st = sig_dev <= 1e-5 and bool((bin_st[~band] == bin_mem[~band]).all())
     ok_res = res_dev <= 1e-5 and bool((bin_res[~band] == bin_st[~band]).all())
-    emit(dict(phase="stream", card=card, volume=list(STREAM_VOLUME), z_starts=z_starts,
-              slabs=-(-z_starts // 4), conv3d_cs_launches=stream_launches,
+    emit(dict(phase="stream", card=card, volume=list(STREAM_VOLUME),
+              z_starts=len(z_starts), slabs=-(-len(z_starts) // k),
+              conv3d_cs_launches=stream_launches, resume_conv3d_cs_launches=res_launches,
               batch_stream=slab_batch, batch_memory=mem_batch,
               seconds_stream=sec_st, gvox_per_s_stream=s_vox / sec_st / 1e9,
               peak_gib_stream=peak_st, seconds_memory=sec_mem,
@@ -406,7 +427,7 @@ def stream_phase(card, sd, dev):
               positives=int(bin_st.sum()), seconds_resume=sec_res,
               resume_max_sigmoid_dev=res_dev, resume_bit_identical=bool(
                   np.array_equal(bin_res, bin_st) and np.array_equal(sig_res, sig_st)),
-              sidecar_removed=resumed))
+              resumed=resumed))
     if stream_launches < 18:
         raise AssertionError("the streamed stage 2 launched no conv3d_cs")
     if not (ok_st and np.isfinite(sig_st).all() and bin_st.shape == STREAM_VOLUME):
@@ -426,7 +447,7 @@ def main() -> int:
         auto_batch_size, dense_patch_starts,
     )
     from delivr_cfos_tpu_torch.models.basic_unet import (
-        BasicUNetConfig, basic_unet_apply, build_model, init_state_dict,
+        _ADN, BasicUNetConfig, basic_unet_apply, build_model, init_state_dict,
     )
     from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
     from delivr_cfos_tpu_torch.ops import _build
@@ -559,11 +580,17 @@ def main() -> int:
     wins = np.stack([vol[z:z + fz, y:y + fy, x:x + fx] for z, y, x in
                      [(0, 0, 0), (40, 60, 100), (90, 130, 200), (92, 140, 324)]])
     xw = torch.from_numpy(wins.astype(np.float32))[..., None].to(dev)
+    seen = []  # (shape, dtype) of every epilogue input the forward makes
+    hooks = [m.register_forward_pre_hook(
+        lambda _, args: seen.append((tuple(args[0].shape), args[0].dtype)))
+        for m in model.modules() if isinstance(m, _ADN)]
     instance_norm_mish.launches = conv3d_cs.launches = 0
     with torch.no_grad():
         fb = basic_unet_apply(model, xw, BasicUNetConfig(
             precision="fast", fused_in_mish=True))
         fb_launches = instance_norm_mish.launches
+        for h in hooks:
+            h.remove()
         parity = model(xw)
     dev_max = float((fb.float() - parity).abs().max())
     scale = float(parity.abs().mean()) + 1e-3
@@ -578,6 +605,24 @@ def main() -> int:
     if not torch.isfinite(fb.float()).all() or dev_max / scale >= 0.5:
         raise AssertionError("fallback forward strays from parity beyond 0.5 × mean |logit|")
     del model, xw, fb, parity, vol
+    torch.cuda.empty_cache()
+
+    # the bf16 kernel against its plain version at the shapes the fallback
+    # forward just gave it (odd plane sizes: the kernel's scalar tail)
+    nw = len(wins)
+    fb_shapes = conv_shapes(fast_cfg.features, FALLBACK_WINDOW)
+    if seen != [((nw, co, d, h, w), torch.bfloat16) for _, _, _, _, co, d, h, w in fb_shapes]:
+        raise AssertionError(f"fallback epilogue shapes {seen} differ from conv_shapes")
+    fb_rows = [check_in_mish(smi, f"{n}/fallback_bf16", nw, co, d, h, w, torch.bfloat16)
+               for n, _, _, _, co, d, h, w in fb_shapes]
+    emit(dict(phase="in_mish_fallback", card=smi, window=list(FALLBACK_WINDOW),
+              windows=nw, shapes=len(fb_rows),
+              max_ulps=max(r["max_ulps"] for r in fb_rows),
+              max_abs_err=max(r["max_abs_err"] for r in fb_rows),
+              ms=sum(r["ms"] for r in fb_rows),
+              plain_ms=sum(r["plain_ms"] for r in fb_rows),
+              library_ms=sum(r["library_ms"] for r in fb_rows),
+              bound_ms=sum(r["bound_ms"] for r in fb_rows)))
     torch.cuda.empty_cache()
 
     # --- 9. out-of-core streaming stage 2 against in device memory ---------
@@ -603,7 +648,7 @@ def main() -> int:
         "source": "delivr_cfos_tpu_torch/csrc/instance_norm_mish.cu",
         "replaces": "delivr_cfos_tpu/ops/pallas/fused_norm_mish.py:59",
         "launches": fused_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in f32_rows + bf16_rows),
+        "max_abs_err": max(r["max_abs_err"] for r in f32_rows + bf16_rows + fb_rows),
         # one parity forward batch: the sum over its 18 epilogue shapes
         "ms": sum(r["ms"] for r in f32_rows),
         "plain_ms": sum(r["plain_ms"] for r in f32_rows),

@@ -43,6 +43,22 @@ from delivr_cfos_tpu_torch.models.basic_unet import BasicUNet, BasicUNetConfig
 from delivr_cfos_tpu_torch.ops.morphology import binary_erosion_cross
 
 ENGINE = "delivr_cfos_tpu_torch"  # sidecars of other engines never match
+SLAB_Z_STARTS = 4  # window grid rows per slab
+
+
+def slab_batch_size(cfg: SlidingWindowConfig, model_cfg: BasicUNetConfig,
+                    volume_shape, itemsize: int, slab_z_starts: int,
+                    device) -> int:
+    """The window batch of a streamed run: ``cfg.batch_size``, else sized
+    from one slab's bytes, not the volume's."""
+    roi = tuple(cfg.roi)
+    interval = scan_interval(volume_shape, roi, cfg.overlap)
+    n_z = len(_dim_starts(volume_shape[0], roi[0], interval[0]))
+    depth = (min(slab_z_starts, n_z) - 1) * interval[0] + roi[0]
+    return cfg.batch_size or auto_batch_size(
+        roi, model_cfg, depth * volume_shape[1] * volume_shape[2] * itemsize,
+        device=device,
+    )
 
 
 def resume_signature(cfg: SlidingWindowConfig, volume_shape, out_shape,
@@ -235,7 +251,7 @@ def _resume_point(path, sig, z_starts, slab_z_starts, n_slabs, roi_z):
 def infer_volume_streaming(model: BasicUNet, volume,
                            cfg: SlidingWindowConfig = SlidingWindowConfig(),
                            model_cfg: BasicUNetConfig = BasicUNetConfig(),
-                           slab_z_starts: int = 4,
+                           slab_z_starts: int = SLAB_Z_STARTS,
                            binary_out: np.ndarray | None = None,
                            logits_out: np.ndarray | None = None,
                            sigmoid_out: np.ndarray | None = None,
@@ -275,11 +291,8 @@ def infer_volume_streaming(model: BasicUNet, volume,
         binary_out = np.empty(out_shape, np.uint8)
     n_slabs = -(-len(z_starts) // slab_z_starts)
     imp = _importance_for(cfg, device)
-    slab_depth = (min(slab_z_starts, len(z_starts)) - 1) * interval[0] + roi[0]
-    batch = cfg.batch_size or auto_batch_size(
-        roi, model_cfg, slab_depth * y_img * x_img * volume.dtype.itemsize,
-        device=device,
-    )
+    batch = slab_batch_size(cfg, model_cfg, volume.shape, volume.dtype.itemsize,
+                            slab_z_starts, device)
     sig = resume_signature(cfg, volume.shape, out_shape, slab_z_starts, batch)
     start_slab, regen_before_slab, finalized = _resume_point(
         resume_state_path, sig, z_starts, slab_z_starts, n_slabs, roi[0]

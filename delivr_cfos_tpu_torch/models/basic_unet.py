@@ -168,7 +168,6 @@ class BasicUNet(nn.Module):
     def __init__(self, config: BasicUNetConfig = BasicUNetConfig()):
         super().__init__()
         f = config.features
-        self.config = config
         self.conv_0 = _TwoConv(config.in_channels, f[0], f[0])
         self.down_1 = _Down(f[0], f[1])
         self.down_2 = _Down(f[1], f[2])
@@ -180,16 +179,15 @@ class BasicUNet(nn.Module):
         self.upcat_1 = _UpCat(f[1], f[0], f[5], halves=False)
         self.final_conv = nn.Conv3d(f[5], config.out_channels, kernel_size=1)
 
-    def forward(self, x, dtype=torch.float32, fused=None):
+    def forward(self, x, dtype=torch.float32, fused: bool = False):
         """``x``: (N, D, H, W, C_in) → logits (N, D, H, W, C_out) in ``dtype``.
 
         f32 is the parity forward. bf16 is its fast-mode form, the
         counterpart of the JAX ``_apply`` with compute_dtype bf16: bf16
         activations, bf16 convolutions with f32 accumulation, biases added in
-        bf16, InstanceNorm statistics in f32. ``fused`` (default: the
-        model's config) sends every epilogue through ``instance_norm_mish``."""
-        if fused is None:
-            fused = self.config.fused_in_mish
+        bf16, InstanceNorm statistics in f32. ``fused`` sends every epilogue
+        through ``instance_norm_mish``; ``basic_unet_apply`` passes the
+        config's ``fused_in_mish`` here, its one source."""
         x = x.to(dtype).permute(0, 4, 1, 2, 3)
         with full_f32():
             x0 = self.conv_0(x, fused)

@@ -58,6 +58,18 @@ def resolve_model_config(bd, params, device) -> tuple[BasicUNetConfig, str]:
     return dataclasses.replace(base, precision=mode), mode
 
 
+def sliding_window_config(cfg: PipelineConfig) -> SlidingWindowConfig:
+    """Stage 2's sliding-window settings from the pipeline config."""
+    bd = cfg.blob_detection
+    return SlidingWindowConfig(
+        roi=bd.window_dimensions.zyx,
+        overlap=0.5,  # reference: inference.py:125
+        tta=cfg.FLAGS.TEST_TIME_AUGMENTATION,
+        importance=bd.importance,
+        erosion_iters=bd.erosion_iters,
+    )
+
+
 def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
                   params=None, model_cfg: BasicUNetConfig | None = None,
                   device=None) -> str:
@@ -95,13 +107,7 @@ def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
         log(f"Model precision mode: {mode} on {device}")
     model = build_model(params, model_cfg, device)
 
-    sw_cfg = SlidingWindowConfig(
-        roi=bd.window_dimensions.zyx,
-        overlap=0.5,  # reference: inference.py:125
-        tta=cfg.FLAGS.TEST_TIME_AUGMENTATION,
-        importance=bd.importance,
-        erosion_iters=bd.erosion_iters,
-    )
+    sw_cfg = sliding_window_config(cfg)
     log(
         f"Inference for {mouse_name}: padded {volume.shape}, "
         f"real {real}, tta={sw_cfg.tta}, device={device}, "
