@@ -15,14 +15,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
              ULP (at max(|value|, rms of the output)), stats within rtol 1e-3.
              Times the kernel, the plain version and one cuDNN bf16
              F.conv3d (a yardstick only; the port never calls it).
+   deconv  — deconv2x_cs against its plain version at the four UpCat shapes
+             of the same forward at the same batch, and upcat_1 with a bias:
+             within one bf16 ULP at max(|value|, rms). Times the kernel, the
+             plain version and one cuDNN bf16 F.conv_transpose3d on the input
+             laid out NCDHW beforehand (a yardstick only).
 4. model   — full-width fast forward (apply_cs) against the f32 parity
              BasicUNet on the same seeded weights, on volume windows.
 5. stage2  — run_inference on the (192, 480, 384) uint16 half-bright volume
              with precision 'auto' (fast on CUDA) and TTA off, then parity;
-             checks the kernel launch count, binaries.npy, and that fast and
-             parity binaries differ only inside the measured logit margin;
-             one more fast run under torch.profiler gives the device time by
-             kernel (phase "profile").
+             checks the kernel launch counts (18 conv3d_cs and 4 deconv2x_cs
+             per forward batch), binaries.npy, and that fast and parity
+             binaries differ only inside the measured logit margin; one more
+             fast run under torch.profiler gives the device time by kernel
+             (phase "profile") and shows that no transposed convolution of
+             the library ran.
 6. fused   — stage 2 in parity with BasicUNetConfig(fused_in_mish=True) on
              the same volume: 18 instance_norm_mish launches per forward
              batch, no conv3d_cs, binaries equal to phase 5's parity run
@@ -44,10 +51,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              1e-5, binaries equal outside the 1e-3 logit band; then a resume
              from a hand-written sidecar at slab 2 over corrupted outputs,
              held to the same standard, with fewer conv3d_cs launches than
-             the whole stream (a restart would launch as many); one more
-             streamed run under torch.profiler gives the device's idle
-             share.
-10. the {"kernels": [...]} line, the nvidia-smi line, then the result line.
+             the whole stream (a restart would launch as many); 4 deconv2x_cs
+             launches per 18 conv3d_cs in both; one more streamed run under
+             torch.profiler gives the device's idle share.
+10. stage3 — count_blobs on phase 5's fast binaries.npy in its three
+             branches (in RAM native, in RAM slab-parallel, out of core): the
+             CSV bytes, cache names and labels equal across branches, on the
+             native engine; label_volume_device on the card over the same
+             binaries equal to the host labels (seconds and rounds); stage 3
+             out of core on phase 9's streamed binaries.
+11. the {"kernels": [...]} line (conv3d_cs, instance_norm_mish,
+             deconv2x_cs), the nvidia-smi line, then the result line.
 
 Every time, rate and memory figure is printed beside the card's name and
 power limit (the "card" key).
@@ -200,13 +214,94 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
     return row
 
 
+def deconv_shapes(features, roi):
+    """(name, D, H, W, C, O) of the four UpCat deconvs of one forward, in
+    call order: the input's level and channels, the UpCat's channels."""
+    f = features
+    rows = [("upcat_4", 4, f[4], f[3]), ("upcat_3", 3, f[3], f[2]),
+            ("upcat_2", 2, f[2], f[1]), ("upcat_1", 1, f[1], f[1])]
+    return [(n, roi[0] >> lvl, roi[1] >> lvl, roi[2] >> lvl, c, o)
+            for n, lvl, c, o in rows]
+
+
+def check_deconv(card, name, b, d, h, w, c, o, *, with_bias=False, chunk=16):
+    """One deconv2x_cs case against the plain version (batch-chunked so the
+    f32 reference fits beside the full-batch tensors); returns a row."""
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
+        deconv2x_cs, deconv2x_cs_reference,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()))
+    x = torch.randn((b, d, c, h * w), generator=g, device=dev).to(torch.bfloat16)
+    wt = torch.randn((c, o, 2, 2, 2), generator=g, device=dev) / math.sqrt(8 * c)
+    bias = torch.randn((o,), generator=g, device=dev) * 0.1 if with_bias else None
+
+    got = deconv2x_cs(x, wt, bias, h=h, w=w)
+    deconv2x_cs_reference(x[:1], wt, bias, h=h, w=w)  # warm: cuBLAS's set-up
+    torch.cuda.synchronize()
+    ulps = err = plain_ms = 0.0
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for lo in range(0, b, chunk):
+        sl = slice(lo, min(lo + chunk, b))
+        ev0.record()
+        want = deconv2x_cs_reference(x[sl], wt, bias, h=h, w=w)
+        ev1.record()
+        torch.cuda.synchronize()
+        plain_ms += ev0.elapsed_time(ev1)
+        u, e = ulp_error(got[sl], want)
+        ulps, err = max(ulps, u), max(err, e)
+        del want
+    finite = bool(torch.isfinite(got.float()).all())
+    del got
+    # 10 runs: the small UpCats take a fraction of a millisecond
+    ms = timed_ms(lambda: deconv2x_cs(x, wt, bias, h=h, w=w), reps=10)
+
+    # yardstick: one cuDNN bf16 transposed conv of the same inputs, laid out
+    # NCDHW beforehand (its output is NCDHW, not the kernel's layout)
+    x5 = x.reshape(b, d, c, h, w).permute(0, 2, 1, 3, 4).contiguous()
+    w5 = wt.to(torch.bfloat16)
+    b5 = None if bias is None else bias.to(torch.bfloat16)
+    library_ms = timed_ms(
+        lambda: torch.nn.functional.conv_transpose3d(x5, w5, b5, stride=2), reps=10)
+    del x5
+    # x read once, the output written once, the weights and bias read once
+    nbytes = (2.0 * b * d * h * w * (c + 8 * o) + 2.0 * 8 * c * o
+              + (4.0 * o if with_bias else 0.0))
+    flops = 2.0 * b * d * h * w * c * 8 * o
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    row = dict(phase="deconv", card=card, case=name + ("/bias" if with_bias else ""),
+               b=b, d=d, h=h, w=w, c_in=c, c_out=o, bias=with_bias, max_ulps=ulps,
+               max_abs_err=err, finite=finite, ms=ms, plain_ms=plain_ms,
+               library_ms=library_ms, bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               gbytes_per_s=nbytes / ms / 1e6)
+    emit(row)
+    if ulps > 1.0 or not finite:
+        raise AssertionError(f"deconv2x_cs disagrees with its plain version: {row}")
+    return row
+
+
+# names of the library's transposed-convolution kernels (cuDNN runs it as
+# the data gradient of a convolution) and of the aten ops that reach them
+TRANSPOSED_CONV_KERNELS = ("dgrad", "convtranspose", "conv_transpose", "col2im", "col2vol")
+TRANSPOSED_CONV_OPS = ("aten::conv_transpose3d", "aten::cudnn_convolution_transpose",
+                       "aten::slow_conv_transpose3d")
+
+
 def profile_summary(prof, wall_s, top=12):
     """Device time by kernel name from a torch.profiler trace: the busiest
-    kernels and the device's busy share of the wall time."""
+    kernels, the device's busy share of the wall time, and any transposed
+    convolution of the library."""
     rows = []
+    transposed = []
     for ev in prof.key_averages():
+        if ev.key in TRANSPOSED_CONV_OPS and ev.count:
+            transposed.append([ev.key, ev.count])
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host-side ops: their kernels are listed on their own
+        if any(k in ev.key.lower() for k in TRANSPOSED_CONV_KERNELS):
+            transposed.append([ev.key[:70], ev.count])
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = ev.self_cuda_time_total
@@ -215,9 +310,11 @@ def profile_summary(prof, wall_s, top=12):
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
     conv_ms = sum(r[0] for r in rows if "conv3d_cs" in r[2])
+    deconv_ms = sum(r[0] for r in rows if "deconv2x_cs" in r[2])
     return dict(phase="profile", wall_s=wall_s, device_busy_ms=busy_ms,
                 device_idle_share=1.0 - busy_ms / 1e3 / wall_s,
-                conv3d_cs_ms=conv_ms,
+                conv3d_cs_ms=conv_ms, deconv2x_cs_ms=deconv_ms,
+                library_transposed_conv=transposed,
                 top=[[name[:70], round(ms, 3), n] for ms, n, name in rows[:top]])
 
 
@@ -352,12 +449,14 @@ def check_in_mish(card, name, n, c, d, h, w, dtype, chunk=8):
 
 def stream_phase(card, sd, dev):
     """Phase 9: stage 2 fast streamed from a disk memmap, then in device
-    memory on the same file, then resumed from a hand-written sidecar."""
+    memory on the same file, then resumed from a hand-written sidecar.
+    Returns the streamed binaries."""
     from delivr_cfos_tpu_torch.engine import streaming
     from delivr_cfos_tpu_torch.engine.sliding_window import (
         auto_batch_size, dense_patch_starts,
     )
     from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
     from delivr_cfos_tpu_torch.pipeline.stage02_inference import (
         resolve_model_config, sliding_window_config,
     )
@@ -376,9 +475,9 @@ def stream_phase(card, sd, dev):
         mem_batch = auto_batch_size(ROI, fast_cfg, svol.nbytes, device=dev)
         write_brain(tmp, svol)
         del svol
-        conv3d_cs.launches = 0
+        conv3d_cs.launches = deconv2x_cs.launches = 0
         sec_st, peak_st, bin_st, sig_st = stage2(tmp, "stream", sd, load_all_ram=False)
-        stream_launches = conv3d_cs.launches
+        stream_launches, stream_deconv = conv3d_cs.launches, deconv2x_cs.launches
         sec_mem, peak_mem, bin_mem, sig_mem = stage2(tmp, "memory", sd)
 
         # resume: the sidecar an interruption after slab 1 leaves, over
@@ -395,9 +494,9 @@ def stream_phase(card, sd, dev):
             mm[finalized:] = bad
             mm.flush()
             del mm
-        conv3d_cs.launches = 0
+        conv3d_cs.launches = deconv2x_cs.launches = 0
         sec_res, _, bin_res, sig_res = stage2(tmp, "stream", sd, load_all_ram=False)
-        res_launches = conv3d_cs.launches
+        res_launches, res_deconv = conv3d_cs.launches, deconv2x_cs.launches
         resumed = (0 < res_launches < stream_launches and not os.path.exists(
             os.path.join(bdir, "streaming_resume.json")))
 
@@ -418,6 +517,7 @@ def stream_phase(card, sd, dev):
     emit(dict(phase="stream", card=card, volume=list(STREAM_VOLUME),
               z_starts=len(z_starts), slabs=-(-len(z_starts) // k),
               conv3d_cs_launches=stream_launches, resume_conv3d_cs_launches=res_launches,
+              deconv2x_cs_launches=stream_deconv, resume_deconv2x_cs_launches=res_deconv,
               batch_stream=slab_batch, batch_memory=mem_batch,
               seconds_stream=sec_st, gvox_per_s_stream=s_vox / sec_st / 1e9,
               peak_gib_stream=peak_st, seconds_memory=sec_mem,
@@ -430,12 +530,94 @@ def stream_phase(card, sd, dev):
               resumed=resumed))
     if stream_launches < 18:
         raise AssertionError("the streamed stage 2 launched no conv3d_cs")
+    # 18 convs and 4 deconvs per forward batch, the resume fewer of both
+    for conv, deconv in ((stream_launches, stream_deconv), (res_launches, res_deconv)):
+        if conv % 18 or deconv != 4 * (conv // 18):
+            raise AssertionError(
+                f"streamed stage 2: {deconv} deconv2x_cs launches for {conv} conv3d_cs")
+    if not 0 < res_deconv < stream_deconv:
+        raise AssertionError("the resumed stream did not launch fewer deconv2x_cs")
     if not (ok_st and np.isfinite(sig_st).all() and bin_st.shape == STREAM_VOLUME):
         raise AssertionError("streamed stage 2 disagrees with the in-memory run")
     if not (ok_res and resumed):
         raise AssertionError("the resumed stream disagrees with the uninterrupted one")
 
-    return stream_launches
+    return bin_st
+
+
+CC_BRANCHES = {  # count_blobs branch: (FLAGS.LOAD_ALL_RAM, cc_workers)
+    "ram_native": (True, 1), "ram_slabs": (True, 4), "out_of_core": (False, 0),
+}
+
+
+def count_blobs_run(blob, post, brain, shape, load_all_ram, workers):
+    """One count_blobs call into ``post``: (seconds, CSV bytes, cache file
+    names, n, labels)."""
+    from delivr_cfos_tpu_torch.config import PipelineConfig
+    from delivr_cfos_tpu_torch.pipeline.stage03_count_blobs import count_blobs
+
+    cfg = PipelineConfig.from_dict({
+        "postprocessing": {"output_location": post, "cc_workers": workers},
+        "FLAGS": {"ABSPATHS": True, "LOAD_ALL_RAM": load_all_ram},
+    })
+    t0 = time.perf_counter()
+    path = count_blobs(cfg, blob, 0, brain, (1, 1, *shape))
+    seconds = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        text = f.read()
+    names = sorted(os.listdir(post))
+    cache = [x for x in names if x.endswith("-cc3d.npy")]
+    if len(cache) != 1:
+        raise AssertionError(f"stage 3 left the caches {names}")
+    n = int(cache[0].rsplit("-", 2)[-2])
+    return seconds, text, names, n, np.load(os.path.join(post, cache[0]), mmap_mode="r")
+
+
+def stage3_phase(card, bin_mem, bin_stream, dev):
+    """Phase 10: stage 3 on the binaries of phases 5 and 9, and the device
+    labeler against the host engine."""
+    from delivr_cfos_tpu_torch.native.build import native_available
+    from delivr_cfos_tpu_torch.ops.connected_components import label_volume_device
+
+    engine = "native" if native_available() else "scipy"
+    with tempfile.TemporaryDirectory() as tmp:
+        blob = os.path.join(tmp, "blob")
+        for brain, vol in (("brain", bin_mem), ("stream", bin_stream)):
+            seg = os.path.join(blob, brain, "binary_segmentations")
+            os.makedirs(seg)
+            np.save(os.path.join(seg, "binaries.npy"), vol)
+        runs = {b: count_blobs_run(blob, os.path.join(tmp, b) + os.sep, "brain",
+                                   VOLUME, *flags)
+                for b, flags in CC_BRANCHES.items()}
+        first = runs["ram_native"]
+        same = all(r[1] == first[1] and r[2] == first[2] and r[3] == first[3]
+                   and np.array_equal(r[4], first[4]) for r in runs.values())
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_labels, dev_n, rounds = label_volume_device(bin_mem, dev, return_rounds=True)
+        sec_dev = time.perf_counter() - t0
+        dev_same = dev_n == first[3] and np.array_equal(dev_labels, first[4])
+
+        sec_st, text_st, _, n_st, _ = count_blobs_run(
+            blob, os.path.join(tmp, "stream_ooc") + os.sep, "stream", STREAM_VOLUME,
+            *CC_BRANCHES["out_of_core"])
+        emit(dict(phase="stage3", card=card, engine=engine, volume=list(VOLUME),
+                  positives=int(bin_mem.sum()), n=first[3],
+                  csv_rows=first[1].count(b"\n") - 1, csv_bytes=len(first[1]),
+                  seconds={b: r[0] for b, r in runs.items()},
+                  branches_equal=same, device_seconds=sec_dev, device_rounds=rounds,
+                  device_labels_equal=dev_same, stream_volume=list(STREAM_VOLUME),
+                  stream_seconds_out_of_core=sec_st, stream_n=n_st,
+                  stream_csv_rows=text_st.count(b"\n") - 1))
+    if engine != "native":
+        raise AssertionError("stage 3 ran the scipy engine: the native library did not build")
+    if not same:
+        raise AssertionError("stage 3 branches disagree (CSV, caches or labels)")
+    if not dev_same:
+        raise AssertionError("label_volume_device disagrees with the host engine")
+    if first[3] < 2 or n_st < 2:
+        raise AssertionError("stage 3 found fewer than two components: no CSV rows")
 
 
 def main() -> int:
@@ -452,6 +634,7 @@ def main() -> int:
     from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
     from delivr_cfos_tpu_torch.ops import _build
     from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
     from delivr_cfos_tpu_torch.ops.instance_norm_mish import instance_norm_mish
 
     smi = subprocess.run(
@@ -475,6 +658,12 @@ def main() -> int:
         check_conv(smi, "conv_0.1/no_stats", batch, 96, 96, 64, 32, 0, 32, emit_stats=False),
         check_conv(smi, "down_1.1/in_affine", batch, 48, 48, 32, 32, 0, 32, affine=True),
     ]
+    torch.cuda.empty_cache()
+    up_shapes = deconv_shapes(fast_cfg.features, ROI)
+    deconv_rows = [check_deconv(smi, n, batch, d, h, w, c, o)
+                   for n, d, h, w, c, o in up_shapes]
+    n1, d1, h1, w1, c1, o1 = up_shapes[-1]
+    deconv_extra = [check_deconv(smi, n1, batch, d1, h1, w1, c1, o1, with_bias=True)]
     torch.cuda.empty_cache()
 
     # --- 4. full-width fast forward vs f32 parity ---------------------------
@@ -506,9 +695,9 @@ def main() -> int:
     _, n_batches_par = forward_batches(vol, parity_batch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         write_brain(tmp, vol)
-        conv3d_cs.launches = 0
+        conv3d_cs.launches = deconv2x_cs.launches = 0
         sec_fast, peak_fast, bin_fast, sig_fast = stage2(tmp, "fast", sd)
-        launches = conv3d_cs.launches
+        launches, deconv_launches = conv3d_cs.launches, deconv2x_cs.launches
         sec_fast_warm, _, _, _ = stage2(tmp, "fast_warm", sd)
         sec_parity, peak_par, bin_par, sig_par = stage2(tmp, "parity", sd, "parity")
 
@@ -518,7 +707,8 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CUDA,
         ]) as prof:
             sec_traced, _, _, _ = stage2(tmp, "fast_traced", sd)
-        emit(dict(profile_summary(prof, sec_traced), card=smi, run="stage2 fast"))
+        fast_profile = profile_summary(prof, sec_traced)
+        emit(dict(fast_profile, card=smi, run="stage2 fast"))
         del prof
 
         # the fused epilogue's path: counts reset just before, read just after
@@ -534,6 +724,7 @@ def main() -> int:
     emit(dict(phase="stage2", card=smi, volume=list(VOLUME), roi=list(ROI),
               windows=int(len(starts)), active_windows=n_active, batch=batch,
               forward_batches=n_batches, kernel_launches=launches,
+              deconv2x_cs_launches=deconv_launches,
               seconds_fast=sec_fast, seconds_fast_warm=sec_fast_warm,
               gvox_per_s_fast=n_vox / sec_fast_warm / 1e9,
               seconds_parity=sec_parity, gvox_per_s_parity=n_vox / sec_parity / 1e9,
@@ -544,6 +735,12 @@ def main() -> int:
               flips_inside_margin=inside))
     if launches < 18 * n_batches:
         raise AssertionError(f"{launches} kernel launches < 18 × {n_batches} batches")
+    if deconv_launches != 4 * n_batches:
+        raise AssertionError(
+            f"{deconv_launches} deconv2x_cs launches != 4 × {n_batches} batches")
+    if fast_profile["library_transposed_conv"]:
+        raise AssertionError("the fast stage 2 still ran the library's transposed conv: "
+                             f"{fast_profile['library_transposed_conv']}")
     if bin_fast.shape != VOLUME or bin_fast.dtype != np.uint8:
         raise AssertionError("binaries.npy has the wrong shape or dtype")
     if not (np.isfinite(sig_fast).all() and inside):
@@ -565,7 +762,7 @@ def main() -> int:
             f"for {n_batches_par} forward batches, {fused_conv} conv3d_cs")
     if not (fused_ok and np.isfinite(sig_fused).all()):
         raise AssertionError("fused binaries differ from parity outside the logit band")
-    del bin_fast, sig_fast, bin_par, sig_par, bin_fused, sig_fused
+    del sig_fast, bin_par, sig_par, bin_fused, sig_fused
 
     # --- 7. instance_norm_mish vs plain at the fused forward's shapes -------
     f32_rows = [check_in_mish(smi, n, parity_batch, co, d, h, w, torch.float32)
@@ -626,7 +823,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 9. out-of-core streaming stage 2 against in device memory ---------
-    stream_phase(smi, sd, dev)
+    bin_stream = stream_phase(smi, sd, dev)
+
+    # --- 10. stage 3 on the binaries of phases 5 and 9 -----------------------
+    stage3_phase(smi, bin_fast, bin_stream, dev)
+    del bin_fast, bin_stream
 
     by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
     emit({"kernels": [{
@@ -655,6 +856,20 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in f32_rows),
         "bound_by": "bytes",
         "library_ms": sum(r["library_ms"] for r in f32_rows),
+    }, {
+        "name": "deconv2x_cs",
+        "route": "cuda",
+        "source": "delivr_cfos_tpu_torch/csrc/deconv2x_cs.cu",
+        "replaces": "scripts/probe_deconv.py:117",
+        "launches": deconv_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in deconv_rows + deconv_extra),
+        # one forward batch: the sum over its 4 UpCat shapes
+        "ms": sum(r["ms"] for r in deconv_rows),
+        "plain_ms": sum(r["plain_ms"] for r in deconv_rows),
+        "bound_ms": sum(r["bound_ms"] for r in deconv_rows),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in deconv_rows)
+        else "operations",
+        "library_ms": sum(r["library_ms"] for r in deconv_rows),
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

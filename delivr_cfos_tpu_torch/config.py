@@ -23,7 +23,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Any
 
-_WORK_PACKAGES = ("blob_detection",)  # the ported stages' sections
+_WORK_PACKAGES = ("blob_detection", "postprocessing")  # the ported stages' sections
 
 
 @dataclass(frozen=True)
@@ -73,6 +73,21 @@ class BlobDetectionConfig:
 
 
 @dataclass(frozen=True)
+class PostprocessingConfig:
+    input_location: str = ""
+    output_location: str = ""
+    min_size: int = -1
+    max_size: int = -1
+    # framework extension — stage-3 connected-components slab parallelism.
+    # 0 = one worker per host core (capped at 8); 1 = serial. The reference's
+    # cc3d pass is single-threaded C++ (count_blobs.py:59-64); here each
+    # z-slab's native union-find sweep is an independent GIL-releasing call,
+    # bit-identical to the serial labeling at any worker count. Values > 1
+    # additionally route the in-RAM path through the slab-parallel labeler.
+    cc_workers: int = 0
+
+
+@dataclass(frozen=True)
 class Flags:
     """The reference's 14 FLAGS (config.json:60-75)."""
 
@@ -97,6 +112,7 @@ class PipelineConfig:
     raw_location: str = ""
     output_location: str = ""
     blob_detection: BlobDetectionConfig = field(default_factory=BlobDetectionConfig)
+    postprocessing: PostprocessingConfig = field(default_factory=PostprocessingConfig)
     FLAGS: Flags = field(default_factory=Flags)
 
     # ---- construction -------------------------------------------------
@@ -116,6 +132,7 @@ class PipelineConfig:
                 raw.get("blob_detection", {}),
                 nested={"window_dimensions": WindowDimensions},
             ),
+            postprocessing=_build(PostprocessingConfig, raw.get("postprocessing", {})),
             FLAGS=_build(Flags, raw.get("FLAGS", {})),
         )
         return cfg.resolve_paths()

@@ -1,4 +1,5 @@
-"""BasicUNet fast forward in (B, D, C, H·W) layout on the conv3d_cs kernel.
+"""BasicUNet fast forward in (B, D, C, H·W) layout on the conv3d_cs and
+deconv2x_cs kernels.
 
 The counterpart of ``delivr_cfos_tpu/models/basic_unet_cs.py::apply_cs``:
 bf16 activations, f32 accumulation, and InstanceNorm statistics in f32 from
@@ -6,8 +7,10 @@ the per-plane (Σx, Σx²) that every conv emits, so no norm re-reads a conv
 output. Same math as the MONAI eval pass (``basic_unet.BasicUNet``); only
 roundings and summation orders differ.
 
-Every 3×3×3 conv of the forward, levels 3 and 4 included, runs through the
-kernel. The JAX package sends planes under 256 voxels to XLA instead
+Every 3×3×3 conv of the forward, levels 3 and 4 included, runs through
+conv3d_cs, and the four UpCat deconvs through deconv2x_cs, which writes its
+output in the (B, 2D, O, 4S) layout the next conv reads. The JAX package
+sends planes under 256 voxels to XLA instead
 (``_PALLAS_MIN_PLANE``); that gate served the TPU's lane layout and has no
 counterpart on the card. The difference stays at bf16 rounding level.
 """
@@ -19,6 +22,7 @@ import torch.nn.functional as F
 
 from delivr_cfos_tpu_torch.models.basic_unet import IN_EPS, BasicUNet
 from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs
+from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
 from delivr_cfos_tpu_torch.utils.device import full_f32
 
 
@@ -86,25 +90,12 @@ def _maxpool2_cs(x, h, wd):
     return m.reshape(b, d // 2, c, (h // 2) * (wd // 2)), h // 2, wd // 2
 
 
-def _deconv2x_cs(x, deconv, h, wd):
-    """(B, D, C, S) → (B, 2D, O, 4S): 2×2×2 stride-2 transposed conv without
-    bias (the UpCat folds the bias into the next conv's loads). bf16 inputs
-    and weights, f32 accumulation, one rounding to bf16."""
-    bsz, d, c, _ = x.shape
-    o = deconv.weight.shape[1]
-    x5 = x.float().reshape(bsz, d, c, h, wd).permute(0, 2, 1, 3, 4)
-    w = deconv.weight.detach().to(torch.bfloat16).float()
-    with full_f32():
-        y = F.conv_transpose3d(x5, w, stride=2)
-    y = y.to(torch.bfloat16).permute(0, 2, 1, 3, 4).contiguous()
-    return y.reshape(bsz, 2 * d, o, (2 * h) * (2 * wd))
-
-
 def _upcat_cs(x, x_skip, up, h, wd):
-    """``h``, ``wd``: the skip level's plane dims. The first conv runs in
-    pair mode over (skip, raw deconv output) with the deconv bias folded
-    into the loads: no concat and no broadcast-add in device memory."""
-    x0 = _deconv2x_cs(x, up.upsample.deconv, h // 2, wd // 2)
+    """``h``, ``wd``: the skip level's plane dims. The deconv runs without
+    its bias; the first conv runs in pair mode over (skip, raw deconv
+    output) with the deconv bias folded into the loads: no concat and no
+    broadcast-add in device memory."""
+    x0 = deconv2x_cs(x, up.upsample.deconv.weight.detach(), None, h=h // 2, w=wd // 2)
     return _two_conv_cs(
         x_skip, up.convs, h, wd, pair=(x0, up.upsample.deconv.bias.detach())
     )

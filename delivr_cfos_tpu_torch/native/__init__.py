@@ -1,0 +1,2 @@
+"""Native (C++) host code, built with g++ at first use and loaded via ctypes:
+the connected-components labeler and statistics sweep of stage 3."""

@@ -30,3 +30,10 @@ def open_memmap(path: str, shape, dtype, mode: str = "w+") -> np.memmap:
         return mm
     return np.lib.format.open_memmap(path, mode=mode)
 
+
+def memmap_raw(path: str, shape, dtype, mode: str = "r") -> np.memmap:
+    """Reference-style raw open skipping the .npy header
+    (``np.memmap(path, offset=128)``, reference: count_blobs.py:46)."""
+    return np.memmap(
+        path, dtype=np.dtype(dtype), mode=mode, offset=NPY_HEADER_BYTES, shape=tuple(shape)
+    )

@@ -12,6 +12,11 @@ import pytest
 import torch
 
 from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs, conv3d_cs_reference
+from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
+    MAX_C,
+    deconv2x_cs,
+    deconv2x_cs_reference,
+)
 from delivr_cfos_tpu_torch.ops.instance_norm_mish import (
     instance_norm_mish,
     instance_norm_mish_reference,
@@ -139,3 +144,67 @@ def test_instance_norm_mish_rejects_what_the_kernel_does_not_take(dev):
         instance_norm_mish(x, torch.ones(3, device=dev), torch.zeros(3, device=dev))
     with pytest.raises(TypeError):
         instance_norm_mish(x.half(), torch.ones(2, device=dev), torch.zeros(2, device=dev))
+
+
+@pytest.mark.parametrize("b,d,c,h,w,o,with_bias", [
+    # the four UpCats of the production forward (window 96 x 96 x 64) at a
+    # batch of 2: upcat_4 .. upcat_1, the last with a bias
+    (2, 6, 256, 6, 4, 128, False),
+    (2, 12, 128, 12, 8, 64, False),
+    (2, 24, 64, 24, 16, 32, False),
+    (2, 48, 32, 48, 32, 32, True),
+    (2, 6, 256, 6, 4, 128, True),
+    # small planes: H·W = 24 with W = 4, several planes a block, a 1 x 4
+    # plane (inputs staged one voxel at a time), odd W (4-byte stores), odd C
+    # and O, a ragged last voxel tile, the largest C the kernel takes
+    (3, 2, 16, 6, 4, 8, True),
+    (2, 11, 16, 6, 4, 24, True),  # 8 planes a block, a ragged last run of 3
+    (1, 1, 16, 1, 4, 16, False),
+    (2, 3, 5, 3, 5, 3, True),
+    (1, 2, 48, 9, 10, 20, False),
+    (1, 2, MAX_C, 2, 4, 17, False),
+])
+def test_deconv2x_cs_kernel_matches_plain_version(dev, b, d, c, h, w, o, with_bias):
+    """Within one bf16 ULP at max(|value|, rms): both sum the same exact bf16
+    products in f32, in their own orders, and round once."""
+    g = torch.Generator().manual_seed(c * 100 + o + w)
+    x = torch.randn((b, d, c, h * w), generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn((c, o, 2, 2, 2), generator=g) / (8 * c) ** 0.5).to(dev)
+    bias = torch.randn((o,), generator=g).to(dev) if with_bias else None
+    before = deconv2x_cs.launches
+    got = deconv2x_cs(x, wt, bias, h=h, w=w)
+    torch.cuda.synchronize()
+    assert deconv2x_cs.launches == before + 1
+    assert got.shape == (b, 2 * d, o, 4 * h * w) and got.dtype == torch.bfloat16
+    want = deconv2x_cs_reference(x, wt, bias, h=h, w=w)
+    assert _ulps(got, want) <= 1.0
+    # a fixed K order: the same bits on every launch
+    assert torch.equal(deconv2x_cs(x, wt, bias, h=h, w=w), got)
+
+
+def test_deconv2x_cs_kernel_on_a_misaligned_view(dev):
+    """A contiguous input that starts off a 16-byte boundary is staged one
+    voxel at a time and gives the plain version's values."""
+    base = torch.randn(1 + 2 * 3 * 16 * 32, device=dev).to(torch.bfloat16)
+    x = base[1:].reshape(2, 3, 16, 32)
+    wt = torch.randn((16, 8, 2, 2, 2), device=dev) / 8
+    got = deconv2x_cs(x, wt, None, h=4, w=8)
+    assert _ulps(got, deconv2x_cs_reference(x, wt, None, h=4, w=8)) <= 1.0
+
+
+def test_deconv2x_cs_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.zeros(1, 2, 16, 24, dtype=torch.bfloat16, device=dev)
+    wt = torch.zeros(16, 8, 2, 2, 2, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        deconv2x_cs(x.transpose(1, 2).contiguous().transpose(1, 2), wt, h=6, w=4)
+    with pytest.raises(TypeError):
+        deconv2x_cs(x.float(), wt, h=6, w=4)
+    with pytest.raises(ValueError):
+        deconv2x_cs(x, wt, h=5, w=4)  # h·w is not the plane size
+    with pytest.raises(ValueError):
+        deconv2x_cs(x, wt[:8], h=6, w=4)  # weights for another C
+    with pytest.raises(ValueError):
+        deconv2x_cs(x, wt, torch.zeros(8, dtype=torch.bfloat16, device=dev), h=6, w=4)
+    big = torch.zeros(1, 1, MAX_C + 16, 4, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="input channels"):
+        deconv2x_cs(big, torch.zeros(MAX_C + 16, 4, 2, 2, 2, device=dev), h=2, w=2)

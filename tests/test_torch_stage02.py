@@ -153,6 +153,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import delivr_cfos_tpu_torch.models.basic_unet_cs\n"
         "import delivr_cfos_tpu_torch.engine.streaming\n"
         "import delivr_cfos_tpu_torch.ops.instance_norm_mish\n"
+        "import delivr_cfos_tpu_torch.ops.deconv2x_cs\n"
+        "import delivr_cfos_tpu_torch.pipeline.stage03_count_blobs\n"
+        "import delivr_cfos_tpu_torch.ops.connected_components\n"
+        "import delivr_cfos_tpu_torch.native.cc\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'delivr_cfos_tpu' or m.startswith('delivr_cfos_tpu.')]\n"
