@@ -13,8 +13,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              stats output, in pair mode with the folded bias, once without
              stats and once with the affine prologue. Output within one bf16
              ULP (at max(|value|, rms of the output)), stats within rtol 1e-3.
-             Times the kernel, the plain version and one cuDNN bf16
-             F.conv3d (a yardstick only; the port never calls it).
+             On the packed path (all but the C_in = 1 first conv) also
+             conv3d_cs_pack against its plain version, bit for bit. Each row
+             gives the path (packed / gather), the conv kernel's ms and the
+             pack's ms apart, their sum, the bounds, TFLOP/s, the plain
+             versions' ms, one cuDNN bf16 F.conv3d and, for the pack, one
+             F.pad of the channels-last view (yardsticks only; the port
+             never calls them); a "kernel_sum" line sums the 18 shapes.
    deconv  — deconv2x_cs against its plain version at the four UpCat shapes
              of the same forward at the same batch, and upcat_1 with a bias:
              within one bf16 ULP at max(|value|, rms). Times the kernel, the
@@ -24,12 +29,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              BasicUNet on the same seeded weights, on volume windows.
 5. stage2  — run_inference on the (192, 480, 384) uint16 half-bright volume
              with precision 'auto' (fast on CUDA) and TTA off, then parity;
-             checks the kernel launch counts (18 conv3d_cs and 4 deconv2x_cs
-             per forward batch), binaries.npy, and that fast and parity
-             binaries differ only inside the measured logit margin; one more
-             fast run under torch.profiler gives the device time by kernel
-             (phase "profile") and shows that no transposed convolution of
-             the library ran.
+             checks the kernel launch counts (18 conv3d_cs, 17
+             conv3d_cs_pack and 4 deconv2x_cs per forward batch),
+             binaries.npy, and that fast and parity binaries differ only
+             inside the measured logit margin; one more fast run under
+             torch.profiler gives the device time by kernel (phase
+             "profile") and shows that no convolution or transposed
+             convolution of the library ran.
 6. fused   — stage 2 in parity with BasicUNetConfig(fused_in_mish=True) on
              the same volume: 18 instance_norm_mish launches per forward
              batch, no conv3d_cs, binaries equal to phase 5's parity run
@@ -51,8 +57,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              1e-5, binaries equal outside the 1e-3 logit band; then a resume
              from a hand-written sidecar at slab 2 over corrupted outputs,
              held to the same standard, with fewer conv3d_cs launches than
-             the whole stream (a restart would launch as many); 4 deconv2x_cs
-             launches per 18 conv3d_cs in both; one more streamed run under
+             the whole stream (a restart would launch as many); 17
+             conv3d_cs_pack and 4 deconv2x_cs launches per 18 conv3d_cs in
+             both; one more streamed run under
              torch.profiler gives the device's idle share.
 10. stage3 — count_blobs on phase 5's fast binaries.npy in its three
              branches (in RAM native, in RAM slab-parallel, out of core): the
@@ -60,8 +67,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              native engine; label_volume_device on the card over the same
              binaries equal to the host labels (seconds and rounds); stage 3
              out of core on phase 9's streamed binaries.
-11. the {"kernels": [...]} line (conv3d_cs, instance_norm_mish,
-             deconv2x_cs), the nvidia-smi line, then the result line.
+11. the {"kernels": [...]} line (conv3d_cs, conv3d_cs_pack,
+             instance_norm_mish, deconv2x_cs), the nvidia-smi line, then the
+             result line.
 
 Every time, rate and memory figure is printed beside the card's name and
 power limit (the "card" key).
@@ -89,6 +97,7 @@ STREAM_VOLUME = (768, 480, 384)  # 15 window z-starts: 4 slabs of 4 rows
 FALLBACK_WINDOW = (100, 100, 60)  # not divisible by 16
 SEED = 0
 BAND = 1e-3  # |logit| inside which sums in another order may flip a voxel
+PACKED = 17  # convs of a forward on the packed path: all but the C_in = 1 first
 
 
 def emit(obj) -> None:
@@ -146,11 +155,21 @@ def ulp_error(got, want):
     return float(((g - w).abs() / ulp).max()), float((g - w).abs().max())
 
 
+def pack_bytes(b, d, h, w, cin):
+    """Bytes the pack must move: the input read once, xp written once."""
+    return 2.0 * b * d * h * w * cin + 2.0 * b * (d + 2) * (h + 2) * (w + 2) * cin
+
+
 def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
                affine=False, chunk=16):
     """One conv3d_cs case against the plain version (batch-chunked so the
-    f32 reference fits beside the full-batch tensors); returns a row."""
-    from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs, conv3d_cs_reference
+    f32 reference fits beside the full-batch tensors); on the packed path
+    also the pack against its plain version, bit for bit. Returns a row."""
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+        _conv3d_cs_staged, block_weights, conv3d_cs, conv3d_cs_pack,
+        conv3d_cs_pack_reference, conv3d_cs_packed, conv3d_cs_path,
+        conv3d_cs_reference, kernel_weights,
+    )
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()))
@@ -168,12 +187,17 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
         aff = (torch.rand((b, cin), generator=g, device=dev) + 0.5,
                torch.randn((b, cin), generator=g, device=dev) * 0.3)
     kw = dict(h=h, w=w, emit_stats=emit_stats, pair=pair, in_affine=aff)
+    path = conv3d_cs_path(c1, c2)
+    pk = dict(h=h, w=w, x2=None if pair is None else pair[0],
+              bias2=None if pair is None else pair[2], in_affine=aff)
 
     out = conv3d_cs(x, wt, None, **kw)
     torch.cuda.synchronize()
     got, st = out if emit_stats else (out, None)
     ulps = err = st_ratio = 0.0
-    plain_ms = 0.0
+    plain_ms = pack_plain_ms = pack_err = 0.0
+    pack_equal = None
+    xp = conv3d_cs_pack(x, **pk) if path == "packed" else None
     ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for lo in range(0, b, chunk):
         sl = slice(lo, min(lo + chunk, b))
@@ -192,25 +216,69 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
             tol = 1e-3 * (st_want.abs() + float(st_want.abs().max()))
             st_ratio = max(st_ratio, float(((st[sl] - st_want).abs() / tol).max()))
         del ref, want, st_want
+        if xp is not None:
+            ev0.record()
+            xp_want = conv3d_cs_pack_reference(
+                x[sl], h=h, w=w, x2=None if p is None else p[0],
+                bias2=None if p is None else p[2], in_affine=a)
+            ev1.record()
+            torch.cuda.synchronize()
+            pack_plain_ms += ev0.elapsed_time(ev1)
+            same = torch.equal(xp[sl].view(torch.int16), xp_want.view(torch.int16))
+            pack_equal = same if pack_equal is None else pack_equal and same
+            pack_err = max(pack_err, float((xp[sl].float() - xp_want.float()).abs().max()))
+            del xp_want
+    del got, st, out
     ms = timed_ms(lambda: conv3d_cs(x, wt, None, **kw))
+    pack_ms = staged_ms = None
+    kernel_ms = ms
+    if xp is not None:
+        w_blk = block_weights(kernel_weights(wt, None if pair is None else pair[1]))
+        pack_ms = timed_ms(lambda: conv3d_cs_pack(x, **pk))
+        kernel_ms = timed_ms(lambda: conv3d_cs_packed(xp, w_blk, None, cout=cout,
+                                                      emit_stats=emit_stats))
+        if aff is None:  # the superseded staged kernel, timed beside it
+            w_k = kernel_weights(wt, None if pair is None else pair[1])
+            staged_ms = timed_ms(lambda: _conv3d_cs_staged(
+                x, w_k, h=h, w=w, cout=cout, x2=pk["x2"], bias2=pk["bias2"]))
+    del xp
 
-    # yardstick: one cuDNN bf16 conv of the same inputs, pre-laid-out NCDHW
-    # (the concat of pair mode and the affine prologue already applied)
+    # yardsticks: one cuDNN bf16 conv of the same inputs, pre-laid-out NCDHW,
+    # and for the pack one F.pad of the channels-last view (the concat of
+    # pair mode and the affine prologue already applied in both)
     xin = x if pair is None else torch.cat([x, pair[0]], dim=2)
     x5 = xin.reshape(b, d, cin, h, w).permute(0, 2, 1, 3, 4).contiguous()
     wcat = wt if pair is None else torch.cat([wt, pair[1]], dim=3)
     w5 = wcat.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous()
     library_ms = timed_ms(lambda: torch.nn.functional.conv3d(x5, w5, padding=1))
-    del x5, xin
+    del x5
+    pack_library_ms = None
+    if path == "packed":
+        xcl = xin.view(b, d, cin, h, w).permute(0, 1, 3, 4, 2)
+        pack_library_ms = timed_ms(
+            lambda: torch.nn.functional.pad(xcl, (0, 0, 1, 1, 1, 1, 1, 1)))
+        del xcl
+    del xin
     bms, by = bound_ms(b, d, s, cin, cout, emit_stats)
-    row = dict(phase="kernel", card=card, case=name, b=b, d=d, h=h, w=w, c_in=cin,
-               c_out=cout, pair=bool(c2), emit_stats=emit_stats, in_affine=affine,
-               max_ulps=ulps, max_abs_err=err, stats_tol_ratio=st_ratio,
-               ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bms,
-               bound_by=by, tflops=2.0 * 27 * cin * cout * b * d * s / ms / 1e9)
+    flops = 2.0 * 27 * cin * cout * b * d * s
+    sum_ms = kernel_ms + (pack_ms or 0.0)
+    row = dict(phase="kernel", card=card, case=name, path=path, b=b, d=d, h=h, w=w,
+               c_in=cin, c_out=cout, pair=bool(c2), emit_stats=emit_stats,
+               in_affine=affine, max_ulps=ulps, max_abs_err=err,
+               stats_tol_ratio=st_ratio, pack_equal=pack_equal,
+               pack_max_abs_err=pack_err if path == "packed" else None,
+               kernel_ms=kernel_ms, pack_ms=pack_ms, ms=sum_ms, wrapper_ms=ms,
+               staged_ms=staged_ms, plain_ms=plain_ms, pack_plain_ms=pack_plain_ms,
+               library_ms=library_ms, pack_library_ms=pack_library_ms,
+               bound_ms=bms, bound_by=by,
+               pack_bound_ms=1e3 * pack_bytes(b, d, h, w, cin) / PEAK_BYTES
+               if path == "packed" else None,
+               tflops=flops / sum_ms / 1e9, kernel_tflops=flops / kernel_ms / 1e9)
     emit(row)
     if ulps > 1.0 or st_ratio > 1.0:
         raise AssertionError(f"conv3d_cs disagrees with its plain version: {row}")
+    if path == "packed" and not pack_equal:
+        raise AssertionError(f"conv3d_cs_pack differs from its plain version: {row}")
     return row
 
 
@@ -287,21 +355,30 @@ def check_deconv(card, name, b, d, h, w, c, o, *, with_bias=False, chunk=16):
 TRANSPOSED_CONV_KERNELS = ("dgrad", "convtranspose", "conv_transpose", "col2im", "col2vol")
 TRANSPOSED_CONV_OPS = ("aten::conv_transpose3d", "aten::cudnn_convolution_transpose",
                        "aten::slow_conv_transpose3d")
+# the aten ops through which any library convolution runs, and cuDNN's
+# forward-convolution kernel names
+LIBRARY_CONV_OPS = ("aten::convolution", "aten::_convolution", "aten::cudnn_convolution")
+LIBRARY_CONV_KERNELS = ("fprop", "implicit_gemm", "implicit_convolve", "conv2d", "conv3d_")
 
 
 def profile_summary(prof, wall_s, top=12):
     """Device time by kernel name from a torch.profiler trace: the busiest
-    kernels, the device's busy share of the wall time, and any transposed
-    convolution of the library."""
+    kernels, the device's busy share of the wall time, and any convolution
+    or transposed convolution of the library."""
     rows = []
     transposed = []
+    library_conv = []
     for ev in prof.key_averages():
         if ev.key in TRANSPOSED_CONV_OPS and ev.count:
             transposed.append([ev.key, ev.count])
+        if ev.key in LIBRARY_CONV_OPS and ev.count:
+            library_conv.append([ev.key, ev.count])
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host-side ops: their kernels are listed on their own
         if any(k in ev.key.lower() for k in TRANSPOSED_CONV_KERNELS):
             transposed.append([ev.key[:70], ev.count])
+        if any(k in ev.key.lower() for k in LIBRARY_CONV_KERNELS) and "conv3d_cs" not in ev.key:
+            library_conv.append([ev.key[:70], ev.count])
         t = getattr(ev, "self_device_time_total", None)
         if t is None:
             t = ev.self_cuda_time_total
@@ -309,12 +386,14 @@ def profile_summary(prof, wall_s, top=12):
             rows.append((t / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    conv_ms = sum(r[0] for r in rows if "conv3d_cs" in r[2])
+    pack_ms = sum(r[0] for r in rows if "conv3d_cs_pack_kernel" in r[2])
+    conv_ms = sum(r[0] for r in rows if "conv3d_cs" in r[2]) - pack_ms
     deconv_ms = sum(r[0] for r in rows if "deconv2x_cs" in r[2])
     return dict(phase="profile", wall_s=wall_s, device_busy_ms=busy_ms,
                 device_idle_share=1.0 - busy_ms / 1e3 / wall_s,
-                conv3d_cs_ms=conv_ms, deconv2x_cs_ms=deconv_ms,
-                library_transposed_conv=transposed,
+                conv3d_cs_ms=conv_ms, conv3d_cs_pack_ms=pack_ms,
+                deconv2x_cs_ms=deconv_ms, library_transposed_conv=transposed,
+                library_conv=library_conv,
                 top=[[name[:70], round(ms, 3), n] for ms, n, name in rows[:top]])
 
 
@@ -455,7 +534,7 @@ def stream_phase(card, sd, dev):
     from delivr_cfos_tpu_torch.engine.sliding_window import (
         auto_batch_size, dense_patch_starts,
     )
-    from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs, conv3d_cs_pack
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
     from delivr_cfos_tpu_torch.pipeline.stage02_inference import (
         resolve_model_config, sliding_window_config,
@@ -475,9 +554,10 @@ def stream_phase(card, sd, dev):
         mem_batch = auto_batch_size(ROI, fast_cfg, svol.nbytes, device=dev)
         write_brain(tmp, svol)
         del svol
-        conv3d_cs.launches = deconv2x_cs.launches = 0
+        conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
         sec_st, peak_st, bin_st, sig_st = stage2(tmp, "stream", sd, load_all_ram=False)
         stream_launches, stream_deconv = conv3d_cs.launches, deconv2x_cs.launches
+        stream_pack = conv3d_cs_pack.launches
         sec_mem, peak_mem, bin_mem, sig_mem = stage2(tmp, "memory", sd)
 
         # resume: the sidecar an interruption after slab 1 leaves, over
@@ -494,9 +574,10 @@ def stream_phase(card, sd, dev):
             mm[finalized:] = bad
             mm.flush()
             del mm
-        conv3d_cs.launches = deconv2x_cs.launches = 0
+        conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
         sec_res, _, bin_res, sig_res = stage2(tmp, "stream", sd, load_all_ram=False)
         res_launches, res_deconv = conv3d_cs.launches, deconv2x_cs.launches
+        res_pack = conv3d_cs_pack.launches
         resumed = (0 < res_launches < stream_launches and not os.path.exists(
             os.path.join(bdir, "streaming_resume.json")))
 
@@ -518,6 +599,7 @@ def stream_phase(card, sd, dev):
               z_starts=len(z_starts), slabs=-(-len(z_starts) // k),
               conv3d_cs_launches=stream_launches, resume_conv3d_cs_launches=res_launches,
               deconv2x_cs_launches=stream_deconv, resume_deconv2x_cs_launches=res_deconv,
+              conv3d_cs_pack_launches=stream_pack, resume_conv3d_cs_pack_launches=res_pack,
               batch_stream=slab_batch, batch_memory=mem_batch,
               seconds_stream=sec_st, gvox_per_s_stream=s_vox / sec_st / 1e9,
               peak_gib_stream=peak_st, seconds_memory=sec_mem,
@@ -530,11 +612,13 @@ def stream_phase(card, sd, dev):
               resumed=resumed))
     if stream_launches < 18:
         raise AssertionError("the streamed stage 2 launched no conv3d_cs")
-    # 18 convs and 4 deconvs per forward batch, the resume fewer of both
-    for conv, deconv in ((stream_launches, stream_deconv), (res_launches, res_deconv)):
-        if conv % 18 or deconv != 4 * (conv // 18):
+    # 18 convs, 17 packs and 4 deconvs per forward batch, the resume fewer
+    for conv, pack, deconv in ((stream_launches, stream_pack, stream_deconv),
+                               (res_launches, res_pack, res_deconv)):
+        if conv % 18 or deconv != 4 * (conv // 18) or pack != PACKED * (conv // 18):
             raise AssertionError(
-                f"streamed stage 2: {deconv} deconv2x_cs launches for {conv} conv3d_cs")
+                f"streamed stage 2: {deconv} deconv2x_cs and {pack} conv3d_cs_pack "
+                f"launches for {conv} conv3d_cs")
     if not 0 < res_deconv < stream_deconv:
         raise AssertionError("the resumed stream did not launch fewer deconv2x_cs")
     if not (ok_st and np.isfinite(sig_st).all() and bin_st.shape == STREAM_VOLUME):
@@ -633,7 +717,7 @@ def main() -> int:
     )
     from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
     from delivr_cfos_tpu_torch.ops import _build
-    from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs, conv3d_cs_pack, conv3d_cs_path
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
     from delivr_cfos_tpu_torch.ops.instance_norm_mish import instance_norm_mish
 
@@ -652,8 +736,11 @@ def main() -> int:
     vol = make_volume()
     fast_cfg = BasicUNetConfig(precision="fast")
     batch = auto_batch_size(ROI, fast_cfg, vol.nbytes, device=dev)
+    shapes = conv_shapes(fast_cfg.features, ROI)
+    if sum(conv3d_cs_path(c1, c2) == "packed" for _, _, c1, c2, _, _, _, _ in shapes) != PACKED:
+        raise AssertionError(f"not {PACKED} of the 18 convs take the packed path")
     rows = [check_conv(smi, n, batch, d, h, w, c1, c2, co)
-            for n, _, c1, c2, co, d, h, w in conv_shapes(fast_cfg.features, ROI)]
+            for n, _, c1, c2, co, d, h, w in shapes]
     extra = [
         check_conv(smi, "conv_0.1/no_stats", batch, 96, 96, 64, 32, 0, 32, emit_stats=False),
         check_conv(smi, "down_1.1/in_affine", batch, 48, 48, 32, 32, 0, 32, affine=True),
@@ -695,9 +782,10 @@ def main() -> int:
     _, n_batches_par = forward_batches(vol, parity_batch, dev)
     with tempfile.TemporaryDirectory() as tmp:
         write_brain(tmp, vol)
-        conv3d_cs.launches = deconv2x_cs.launches = 0
+        conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
         sec_fast, peak_fast, bin_fast, sig_fast = stage2(tmp, "fast", sd)
         launches, deconv_launches = conv3d_cs.launches, deconv2x_cs.launches
+        pack_launches = conv3d_cs_pack.launches
         sec_fast_warm, _, _, _ = stage2(tmp, "fast_warm", sd)
         sec_parity, peak_par, bin_par, sig_par = stage2(tmp, "parity", sd, "parity")
 
@@ -724,6 +812,7 @@ def main() -> int:
     emit(dict(phase="stage2", card=smi, volume=list(VOLUME), roi=list(ROI),
               windows=int(len(starts)), active_windows=n_active, batch=batch,
               forward_batches=n_batches, kernel_launches=launches,
+              conv3d_cs_pack_launches=pack_launches,
               deconv2x_cs_launches=deconv_launches,
               seconds_fast=sec_fast, seconds_fast_warm=sec_fast_warm,
               gvox_per_s_fast=n_vox / sec_fast_warm / 1e9,
@@ -733,11 +822,15 @@ def main() -> int:
               positives_fast=int(bin_fast.sum()), positives_parity=int(bin_par.sum()),
               flipped_voxels=int(flipped.sum()), sigmoid_margin=margin,
               flips_inside_margin=inside))
-    if launches < 18 * n_batches:
-        raise AssertionError(f"{launches} kernel launches < 18 × {n_batches} batches")
+    if launches != 18 * n_batches or pack_launches != PACKED * n_batches:
+        raise AssertionError(f"{launches} conv3d_cs and {pack_launches} conv3d_cs_pack "
+                             f"launches for {n_batches} forward batches")
     if deconv_launches != 4 * n_batches:
         raise AssertionError(
             f"{deconv_launches} deconv2x_cs launches != 4 × {n_batches} batches")
+    if fast_profile["library_conv"]:
+        raise AssertionError("the fast stage 2 ran a library convolution: "
+                             f"{fast_profile['library_conv']}")
     if fast_profile["library_transposed_conv"]:
         raise AssertionError("the fast stage 2 still ran the library's transposed conv: "
                              f"{fast_profile['library_transposed_conv']}")
@@ -766,8 +859,7 @@ def main() -> int:
 
     # --- 7. instance_norm_mish vs plain at the fused forward's shapes -------
     f32_rows = [check_in_mish(smi, n, parity_batch, co, d, h, w, torch.float32)
-                for n, _, _, _, co, d, h, w in conv_shapes(fast_cfg.features, ROI)]
-    shapes = conv_shapes(fast_cfg.features, ROI)
+                for n, _, _, _, co, d, h, w in shapes]
     bf16_rows = [check_in_mish(smi, f"{n}/bf16", batch, co, d, h, w, torch.bfloat16)
                  for n, lvl, _, _, co, d, h, w in (shapes[1], shapes[9])]
     torch.cuda.empty_cache()
@@ -830,6 +922,14 @@ def main() -> int:
     del bin_fast, bin_stream
 
     by_ops = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+    packed = [r for r in rows + extra if r["path"] == "packed"]
+    emit(dict(phase="kernel_sum", card=smi, shapes=len(rows),
+              kernel_ms=sum(r["kernel_ms"] for r in rows),
+              pack_ms=sum(r["pack_ms"] or 0.0 for r in rows),
+              ms=sum(r["ms"] for r in rows),
+              staged_ms=sum(r["staged_ms"] or 0.0 for r in rows),
+              bound_ms=sum(r["bound_ms"] for r in rows),
+              library_ms=sum(r["library_ms"] for r in rows)))
     emit({"kernels": [{
         "name": "conv3d_cs",
         "route": "cuda",
@@ -837,12 +937,28 @@ def main() -> int:
         "replaces": "delivr_cfos_tpu/ops/pallas/conv3d_cs.py:374",
         "launches": launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows + extra),
-        # one forward batch: the sum over its 18 conv shapes
-        "ms": sum(r["ms"] for r in rows),
+        # one forward batch: the sum over its 18 conv shapes, the conv
+        # kernels alone (the pack is the next entry)
+        "ms": sum(r["kernel_ms"] for r in rows),
         "plain_ms": sum(r["plain_ms"] for r in rows),
         "bound_ms": sum(r["bound_ms"] for r in rows),
         "bound_by": "operations" if by_ops * 2 >= sum(r["bound_ms"] for r in rows) else "bytes",
         "library_ms": sum(r["library_ms"] for r in rows),
+    }, {
+        "name": "conv3d_cs_pack",
+        "route": "cuda",
+        "source": "delivr_cfos_tpu_torch/csrc/conv3d_cs.cu",
+        # the TPU kernel stages its padded input in VMEM; on the card that
+        # staging is this pass
+        "replaces": "delivr_cfos_tpu/ops/pallas/conv3d_cs.py:374",
+        "launches": pack_launches,
+        "max_abs_err": max(r["pack_max_abs_err"] for r in packed),
+        # one forward batch: the sum over its 17 packed conv shapes
+        "ms": sum(r["pack_ms"] for r in rows if r["path"] == "packed"),
+        "plain_ms": sum(r["pack_plain_ms"] for r in rows if r["path"] == "packed"),
+        "bound_ms": sum(r["pack_bound_ms"] for r in rows if r["path"] == "packed"),
+        "bound_by": "bytes",
+        "library_ms": sum(r["pack_library_ms"] for r in rows if r["path"] == "packed"),
     }, {
         "name": "instance_norm_mish",
         "route": "cuda",

@@ -3,13 +3,11 @@
 // Replaces the TPU kernel delivr_cfos_tpu/ops/pallas/conv3d_cs.py:374
 // (`conv3d_cs`, bodies `_kernel` and `_kernel_mp`) with the same contract:
 //   x        (B, D, C1, H*W) bf16, and in pair mode x2 (B, D, C2, H*W) bf16;
-//            the conv runs over concat([x, x2 + pair_bias], C) without
-//            building the concat (two input pointers feed one K loop)
-//   w        (27 * (C1 + C2), C_out) bf16: the DHWIO weights flattened, so
-//            row k = ((dz * 3 + dy) * 3 + dx) * C_in + ci
+//            the conv runs over concat([x, x2 + pair_bias], C)
+//   w        the DHWIO weights, row k = ((dz * 3 + dy) * 3 + dx) * C_in + ci
 //   bias     optional (C_out,) f32, added in f32 before rounding
-//   in_affine optional (B, C_in) f32 a and c: each loaded input value v
-//            becomes bf16(mish(v * a + c)) (the fused InstanceNorm+mish)
+//   in_affine optional (B, C_in) f32 a and c: each input value v becomes
+//            bf16(mish(v * a + c)) (the fused InstanceNorm+mish)
 //   out      (B, D, C_out, H*W) bf16
 //   stats    optional (B, D, 2, C_out) f32: per-plane sum and sum of squares
 //            of the f32 output before bf16 rounding
@@ -21,26 +19,49 @@
 // from C_in = C_out = 32 up, so the full-resolution layers are bound by
 // operations (the C_in = 1 first conv is bound by bytes).
 //
-// Design: an implicit GEMM with M = output voxels of one z-plane, N = C_out,
-// K = 27 * C_in. One block per (C_out tile of 32, z-plane d, batch b) walks
-// its whole H*W plane in tiles of 128 voxels, so the plane's stats are reduced
-// inside the block in a fixed order: no atomics, no second pass, the same bits
-// on every run (a TPU grid runs in order, Hopper blocks do not). 8 warps run
-// nvcuda::wmma bf16 -> f32 on 16 x 16 x 16 fragments. Two K loops:
+// Three kernels:
 //
-// - staged (C1 and C2 multiples of 16: every production layer but the
-//   C_in = 1 first conv): per chunk of 16 input channels the block stages the
-//   span of the zero-padded, flattened input planes that its tile reads, with
-//   channels innermost, in shared memory. The A fragment of tap (dz, dy, dx) is
-//   then a strided view of that buffer (16 consecutive voxels, stride 16
-//   channels): no im2col copy, each input value read from device memory once
-//   per tile.
-// - gather (any other C_in): per chunk of 32 K columns, which cross tap
-//   boundaries so K = 27 * C_in is not padded, the block gathers the im2col
-//   tile straight from global memory.
+// - conv3d_cs_pack_kernel (bound by bytes): writes the conv's input once as
+//   xp (B, D + 2, H + 2, W + 2, C_in) bf16, zero-padded on the three spatial
+//   axes, channels innermost, with the pair concat, the pair bias and the
+//   affine prologue applied. A thread reads 8 channels x 8 voxels with 16-byte
+//   loads along x (8 channels x 1 voxel where H*W % 8 != 0), transposes them
+//   in registers and writes each voxel's 8 channels as one 16-byte store; the
+//   halo zeros are 16-byte stores of the same kernel.
+// - conv3d_cs_packed_kernel (C_in a multiple of 16: every production layer
+//   but the C_in = 1 first conv): an implicit GEMM, M = output voxels of one
+//   z-plane, N = C_out, K = 27 * C_in, on xp. With the padded plane flattened
+//   to v = r * (W + 2) + c, tap (dz, dy, dx) of tile row v reads voxel
+//   v + dy * (W + 2) + dx of padded plane d + dz: one stage, (dz, 16 input
+//   channels), is one span of TM + 2 (W + 2) + 2 voxels, a strided block of
+//   xp copied with 16-byte cp.async and no per-element logic, and its 9
+//   (dy, dx) taps are row offsets into it. The stage's weights (9 taps x 16
+//   channels x 32 output channels) come from a per-block contiguous layout
+//   with the same copies. Stages run in a ring of STAGES buffers: while the
+//   taps of one stage run, the copies of the next two are in flight.
+//   mma.sync m16n8k16 bf16 -> f32 with ldmatrix; warp w owns tile rows
+//   [32w, 32w + 32) and all 32 output channels. Rows are padded (24 and 40
+//   bf16) so ldmatrix's eight 16-byte rows fall in distinct banks. Virtual
+//   columns c = W, W + 1 are computed and dropped (3 % extra work at W = 64);
+//   the input rows they read, and those of rows past the plane, feed only
+//   dropped rows, so xp needs only a tail of TM voxels past its end, which
+//   the wrapper allocates.
+//   Shared memory per stage: (TM + 2 (W + 2) + 2) * 24 * 2 bytes of input
+//   and 9 * 16 * 40 * 2 = 11520 of weights: at TM = 256 and W = 64,
+//   30240 bytes, 90720 for the ring of 3, so 2 blocks of 256 threads fit an
+//   SM (the bound __launch_bounds__ asks for); at TM = 128 (planes of at
+//   most 512 virtual voxels, levels 2-4) 4 blocks of 128.
+// - conv3d_cs_gather_kernel (any other C_in): per chunk of 32 K columns, which
+//   cross tap boundaries so K = 27 * C_in is not padded, the block gathers the
+//   im2col tile straight from global memory and runs nvcuda::wmma.
 //
-// Left for later: wgmma and TMA, cp.async double buffering of the staged
-// chunks, reuse of a staged tile across C_out tiles, wider N tiles.
+// Both GEMM kernels run one block per (C_out tile of 32, z-plane d, batch b)
+// walking its whole H*W plane in a fixed order, so the plane's stats are
+// reduced inside the block in a fixed order: no atomics, no second pass, the
+// same bits on every run (a TPU grid runs in order, Hopper blocks do not).
+//
+// Left for later: wgmma and TMA on xp, multi-plane tiles for the small planes
+// of levels 3-4, weights resident per block, wider N tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,18 +73,26 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int TM = 128;       // output voxels per tile (GEMM rows)
 constexpr int TN = 32;        // output channels per block (GEMM columns)
-constexpr int THREADS = 256;  // 8 warps; warp w owns tile rows [16w, 16w + 16)
-constexpr int LDC = TM + 4;   // C col-major: C[m, n] at c_s[n * LDC + m]
-constexpr int NJ = TN / 2;    // output channels per thread in the epilogue
 // gather path
+constexpr int GTM = 128;      // output voxels per tile (GEMM rows)
+constexpr int THREADS = 256;  // 8 warps; warp w owns tile rows [16w, 16w + 16)
+constexpr int LDC = GTM + 4;  // C col-major: C[m, n] at c_s[n * LDC + m]
+constexpr int NJ = TN / 2;    // output channels per thread in the epilogue
 constexpr int TK = 32;        // K per shared-memory stage
-constexpr int LDA = TM + 8;   // A col-major: A[m, k] at a_s[k * LDA + m]
+constexpr int LDA = GTM + 8;  // A col-major: A[m, k] at a_s[k * LDA + m]
 constexpr int LDB = TN + 8;   // B row-major: B[k, n] at b_s[k * LDB + n]
-// staged path
+// staged path (superseded by the packed path)
+constexpr int TM = 128;
 constexpr int CC = 16;        // input channels per stage
 constexpr int LDW = TN + 8;   // weights row-major: W[t, k, n] at w_s[(t*CC+k)*LDW+n]
+// packed path
+constexpr int PCC = 16;       // input channels per stage
+constexpr int STAGES = 3;     // ring depth
+constexpr int LDX = PCC + 8;  // span row: one voxel's 16 channels, padded
+constexpr int LDP = TN + 8;   // weight row: one K row's 32 output channels
+constexpr int W_STAGE = 9 * PCC * LDP;  // bf16 of one stage's weights
+constexpr int PACK_THREADS = 256;
 
 struct Args {
   const __nv_bfloat16* x1;
@@ -80,24 +109,26 @@ struct Args {
 
 using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
+// mish as PyTorch computes v * tanh(softplus(v)) in f32 (softplus with its
+// threshold 20), so that the prologue gives the plain version's bits.
 __device__ __forceinline__ float mish_f32(float v) {
-  // softplus as max(v, 0) + log1p(exp(-|v|)): no overflow for large |v|
-  const float sp = fmaxf(v, 0.f) + log1pf(expf(-fabsf(v)));
-  return v * tanhf(sp);
+  const float sp = v > 20.f ? v : log1pf(expf(v));
+  return __fmul_rn(v, tanhf(sp));
 }
 
 // Channel ci of the (virtual) concat input after the pair bias and the affine
-// prologue, given its raw bf16 value.
+// prologue, given its raw bf16 value. Explicit roundings (no fused
+// multiply-add): the plain version's f32 product, then its sum.
 __device__ __forceinline__ __nv_bfloat16 prologue(const Args& p, int b, int ci,
                                                   __nv_bfloat16 val) {
   if (ci >= p.C1 && p.pair_bias != nullptr) {
-    val = __float2bfloat16(__bfloat162float(val) +
-                           __bfloat162float(p.pair_bias[ci - p.C1]));
+    val = __float2bfloat16(__fadd_rn(__bfloat162float(val),
+                                     __bfloat162float(p.pair_bias[ci - p.C1])));
   }
   if (p.aff_a != nullptr) {
     const int cin = p.C1 + p.C2;
-    const float v = __bfloat162float(val) * p.aff_a[b * cin + ci] +
-                    p.aff_c[b * cin + ci];
+    const float v = __fadd_rn(__fmul_rn(__bfloat162float(val), p.aff_a[b * cin + ci]),
+                              p.aff_c[b * cin + ci]);
     val = __float2bfloat16(mish_f32(v));
   }
   return val;
@@ -111,6 +142,339 @@ __device__ __forceinline__ const __nv_bfloat16* channel_ptr(const Args& p,
   if (ci < p.C1) return p.x1 + (((size_t)b * p.D + z) * p.C1 + ci) * S;
   return p.x2 + (((size_t)b * p.D + z) * p.C2 + (ci - p.C1)) * S;
 }
+
+// ---------------------------------------------------------------------------
+// pack: (B, D, C, H*W) -> xp (B, D + 2, H + 2, W + 2, C_in)
+
+// Unit u of the interior: 8 channels (group g) x VEC consecutive voxels of
+// one plane. Loads along x, transposes in registers, 16-byte stores.
+template <int VEC>
+__device__ __forceinline__ void pack_interior(const Args& p, long long u) {
+  const int cin = p.C1 + p.C2;
+  const int G = cin / 8;
+  const int S = p.H * p.W;
+  const int NV = S / VEC;
+  const int g = (int)(u % G);
+  const long long r = u / G;
+  const int j = (int)(r % NV);
+  const int bz = (int)(r / NV);
+  const int b = bz / p.D;
+  const int z = bz - b * p.D;
+  __nv_bfloat16 v[8][VEC];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const __nv_bfloat16* src = channel_ptr(p, b, z, 8 * g + e) + (size_t)j * VEC;
+    if constexpr (VEC == 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(src);
+      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&q);
+#pragma unroll
+      for (int t = 0; t < 8; ++t) v[e][t] = h[t];
+    } else {
+      v[e][0] = *src;
+    }
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) v[e][t] = prologue(p, b, 8 * g + e, v[e][t]);
+  }
+  const size_t plane = (size_t)b * (p.D + 2) + z + 1;
+#pragma unroll
+  for (int t = 0; t < VEC; ++t) {
+    const int m = j * VEC + t;
+    const int y = m / p.W;
+    const int x = m - y * p.W;
+    uint32_t w4[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      w4[e] = (uint32_t)__bfloat16_as_ushort(v[2 * e][t]) |
+              ((uint32_t)__bfloat16_as_ushort(v[2 * e + 1][t]) << 16);
+    }
+    const size_t vox = (plane * (p.H + 2) + y + 1) * (p.W + 2) + x + 1;
+    *reinterpret_cast<uint4*>(p.out + vox * cin + 8 * g) =
+        make_uint4(w4[0], w4[1], w4[2], w4[3]);
+  }
+}
+
+// Unit u of the halo: 8 zero channels of one halo voxel. Per batch the halo
+// is the two padded planes z' = 0 and D + 1, then for each interior plane
+// its rows y' = 0 and H + 1 and its columns x' = 0 and W + 1.
+__device__ __forceinline__ void pack_halo(const Args& p, long long u) {
+  const int cin = p.C1 + p.C2;
+  const int G = cin / 8;
+  const int WP = p.W + 2;
+  const int P = (p.H + 2) * WP;
+  const int R = 2 * WP + 2 * p.H;
+  const long long NH = 2LL * P + (long long)p.D * R;
+  const int g = (int)(u % G);
+  const long long r = u / G;
+  const int h = (int)(r % NH);
+  const int b = (int)(r / NH);
+  int zp, yp, xp;
+  if (h < 2 * P) {
+    zp = h < P ? 0 : p.D + 1;
+    const int q = h % P;
+    yp = q / WP;
+    xp = q - yp * WP;
+  } else {
+    const int h2 = h - 2 * P;
+    zp = 1 + h2 / R;
+    const int k = h2 % R;
+    if (k < 2 * WP) {
+      yp = k < WP ? 0 : p.H + 1;
+      xp = k % WP;
+    } else {
+      yp = 1 + (k - 2 * WP) / 2;
+      xp = (k & 1) ? p.W + 1 : 0;
+    }
+  }
+  const size_t vox = (((size_t)b * (p.D + 2) + zp) * (p.H + 2) + yp) * WP + xp;
+  *reinterpret_cast<uint4*>(p.out + vox * cin + 8 * g) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(PACK_THREADS) conv3d_cs_pack_kernel(
+    Args p, long long n_interior, long long n_total) {
+  const long long stride = (long long)gridDim.x * PACK_THREADS;
+  for (long long u = (long long)blockIdx.x * PACK_THREADS + threadIdx.x;
+       u < n_total; u += stride) {
+    if (u < n_interior) {
+      pack_interior<VEC>(p, u);
+    } else {
+      pack_halo(p, u - n_interior);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// packed conv on xp
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct PackedArgs {
+  const __nv_bfloat16* xp;  // (B, D + 2, H + 2, W + 2, Cin) and a tail
+  const __nv_bfloat16* w;   // (ceil(Cout / TN), 27 * Cin, TN), zero-padded
+  const float* bias;
+  __nv_bfloat16* out;
+  float* stats;
+  int B, D, Cin, Cout, H, W;
+};
+
+__host__ __device__ constexpr int packed_stage_elems(int tm, int W) {
+  return (tm + 2 * (W + 2) + 2) * LDX + W_STAGE;
+}
+
+template <int TMP>
+__global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(PackedArgs p) {
+  constexpr int NW = TMP / 32;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int WP = p.W + 2;
+  const int P = (p.H + 2) * WP;
+  const int NS = TMP + 2 * WP + 2;
+  const int stage_elems = packed_stage_elems(TMP, p.W);
+  const int cin = p.Cin;
+  const int nch = cin / PCC;
+  const int KI = 3 * nch;  // stages per tile: (dz, channel chunk)
+  const int V = p.H * WP;  // virtual outputs of the plane
+  const int total = (V + TMP - 1) / TMP * KI;
+
+  const int nt = blockIdx.x;
+  const int n0 = nt * TN;
+  const int d = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  // padded plane d + dz holds input plane d + dz - 1: tap dz of output plane d
+  const __nv_bfloat16* xb = p.xp + ((size_t)b * (p.D + 2) + d) * P * cin;
+  const __nv_bfloat16* wb = p.w + (size_t)nt * 27 * cin * TN;
+  const uint32_t smem0 = (uint32_t)__cvta_generic_to_shared(smem);
+
+  auto load = [&](int it) {
+    const int t = it / KI;
+    const int k = it - t * KI;
+    const int dz = k / nch;
+    const int c0 = (k - dz * nch) * PCC;
+    const uint32_t a_s = smem0 + (uint32_t)((it % STAGES) * stage_elems) * 2u;
+    const uint32_t w_s = a_s + (uint32_t)(NS * LDX) * 2u;
+    const __nv_bfloat16* src = xb + ((size_t)dz * P + (size_t)t * TMP) * cin + c0;
+    for (int i = tid; i < NS * 2; i += TMP) {
+      const int q = i >> 1;
+      const int h = (i & 1) * 8;
+      cp_async16(a_s + (uint32_t)(q * LDX + h) * 2u, src + (size_t)q * cin + h);
+    }
+    const __nv_bfloat16* wsrc = wb + ((size_t)dz * 9 * cin + c0) * TN;
+    for (int i = tid; i < 9 * PCC * (TN / 8); i += TMP) {
+      const int row = i >> 2;  // j * PCC + kk
+      const int q = (i & 3) * 8;
+      const int j = row / PCC;
+      const int kk = row - j * PCC;
+      cp_async16(w_s + (uint32_t)(row * LDP + q) * 2u,
+                 wsrc + ((size_t)j * cin + kk) * TN + q);
+    }
+  };
+
+  float acc[2][4][4];
+  float s1[4][2], s2[4][2];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) s1[ni][e] = s2[ni][e] = 0.f;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+    }
+  }
+  // ldmatrix row addresses of this lane: A rows (lane & 15) of the warp's
+  // 16-row block, channels (lane >> 4) * 8; B K rows (lane & 15), output
+  // channels (lane >> 4) * 8 of a 16-wide block
+  const uint32_t a_lane = (uint32_t)(((warp * 32 + (lane & 15)) * LDX + (lane >> 4) * 8) * 2);
+  const uint32_t b_lane = (uint32_t)(((lane & 15) * LDP + (lane >> 4) * 8) * 2);
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) load(s);
+    cp_async_commit();
+  }
+  int k_in_tile = 0;
+  int v0 = 0;
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage it landed for all; stage it - 1 is free
+    if (it + STAGES - 1 < total) load(it + STAGES - 1);
+    cp_async_commit();
+
+    const uint32_t a_s = smem0 + (uint32_t)((it % STAGES) * stage_elems) * 2u;
+    const uint32_t w_s = a_s + (uint32_t)(NS * LDX) * 2u;
+#pragma unroll
+    for (int j = 0; j < 9; ++j) {
+      const int off = (j / 3) * WP + (j % 3);
+      uint32_t af[2][4], bq[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        ldmatrix_x4(af[mi], a_s + a_lane + (uint32_t)((off + 16 * mi) * LDX * 2));
+      }
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh) {
+        ldmatrix_x4_trans(bq[nh], w_s + b_lane + (uint32_t)((j * PCC * LDP + nh * 16) * 2));
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          mma_bf16(acc[mi][ni], af[mi], bq[ni >> 1][(ni & 1) * 2],
+                   bq[ni >> 1][(ni & 1) * 2 + 1]);
+        }
+      }
+    }
+
+    if (++k_in_tile == KI) {
+      // epilogue of the tile, from registers: tile row i is virtual voxel
+      // v0 + i = r * WP + c; columns c >= W and rows r >= H are dropped
+      const int S = p.H * p.W;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int v = v0 + warp * 32 + 16 * mi + (lane >> 2) + 8 * h;
+          const int r = v / WP;
+          const int c = v - r * WP;
+          if (r < p.H && c < p.W) {
+            const int m = r * p.W + c;
+#pragma unroll
+            for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int n = n0 + 8 * ni + 2 * (lane & 3) + e;
+                if (n < p.Cout) {
+                  float val = acc[mi][ni][2 * h + e];
+                  if (p.bias != nullptr) val += p.bias[n];
+                  p.out[(((size_t)b * p.D + d) * p.Cout + n) * S + m] =
+                      __float2bfloat16(val);
+                  s1[ni][e] += val;
+                  s2[ni][e] += val * val;
+                }
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+        }
+      }
+      k_in_tile = 0;
+      v0 += TMP;
+    }
+  }
+  cp_async_wait<0>();
+  if (p.stats == nullptr) return;
+
+  // stats: a fixed xor tree over the 8 lanes that share a column, then the
+  // warps in order; the ring's buffers are free once every thread is here
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);  // [2][NW][TN]
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        s1[ni][e] += __shfl_xor_sync(0xffffffffu, s1[ni][e], o);
+        s2[ni][e] += __shfl_xor_sync(0xffffffffu, s2[ni][e], o);
+      }
+      if (lane < 4) {
+        const int col = 8 * ni + 2 * lane + e;
+        red[warp * TN + col] = s1[ni][e];
+        red[(NW + warp) * TN + col] = s2[ni][e];
+      }
+    }
+  }
+  __syncthreads();
+  if (tid < 2 * TN) {
+    const int q = tid / TN;
+    const int col = tid - q * TN;
+    if (n0 + col < p.Cout) {
+      float s = 0.f;
+      for (int w = 0; w < NW; ++w) s += red[(q * NW + w) * TN + col];
+      p.stats[(((size_t)b * p.D + d) * 2 + q) * p.Cout + n0 + col] = s;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// gather and staged conv on (B, D, C, H*W)
 
 // Epilogue of one 128-voxel tile: accumulators → c_s → bf16 output (+ bias),
 // and this thread's running stats of the f32 values.
@@ -130,8 +494,8 @@ __device__ __forceinline__ void store_tile(const Args& p, AccFrag (&acc)[TN / 16
                             wmma::mem_col_major);
   }
   __syncthreads();
-  const int m_t = tid % TM;
-  const int k_t = tid / TM;
+  const int m_t = tid % GTM;
+  const int k_t = tid / GTM;
   const int r = (m0 + m_t) / row;
   const int c = (m0 + m_t) % row;
   const int m = r * p.W + c;
@@ -158,8 +522,8 @@ __device__ __forceinline__ void store_stats(const Args& p, float* c_s, int b,
                                             int d, int n0, const float (&s1)[NJ],
                                             const float (&s2)[NJ]) {
   const int tid = threadIdx.x;
-  const int m_t = tid % TM;
-  const int k_t = tid / TM;
+  const int m_t = tid % GTM;
+  const int k_t = tid / GTM;
   for (int q = 0; q < 2; ++q) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -168,7 +532,7 @@ __device__ __forceinline__ void store_stats(const Args& p, float* c_s, int b,
     __syncthreads();
     if (tid < TN && n0 + tid < p.Cout) {
       float s = 0.f;
-      for (int i = 0; i < TM; ++i) s += c_s[tid * LDC + i];
+      for (int i = 0; i < GTM; ++i) s += c_s[tid * LDC + i];
       p.stats[(((size_t)b * p.D + d) * 2 + q) * p.Cout + n0 + tid] = s;
     }
     __syncthreads();
@@ -190,14 +554,14 @@ __global__ void __launch_bounds__(THREADS) conv3d_cs_gather_kernel(Args p) {
   const int K = 27 * cin;
   const int n_chunks = (K + TK - 1) / TK;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const int m_t = tid % TM;
-  const int k_t = tid / TM;
+  const int m_t = tid % GTM;
+  const int k_t = tid / GTM;
 
   float s1[NJ], s2[NJ];
 #pragma unroll
   for (int j = 0; j < NJ; ++j) s1[j] = s2[j] = 0.f;
 
-  for (int m0 = 0; m0 < S; m0 += TM) {
+  for (int m0 = 0; m0 < S; m0 += GTM) {
     AccFrag acc[TN / 16];
 #pragma unroll
     for (int nf = 0; nf < TN / 16; ++nf) wmma::fill_fragment(acc[nf], 0.f);
@@ -208,7 +572,7 @@ __global__ void __launch_bounds__(THREADS) conv3d_cs_gather_kernel(Args p) {
 
     for (int kc = 0; kc < n_chunks; ++kc) {
       // A: im2col gather of 128 voxels x 32 K columns
-      for (int kk = k_t; kk < TK; kk += THREADS / TM) {
+      for (int kk = k_t; kk < TK; kk += THREADS / GTM) {
         const int k = kc * TK + kk;
         __nv_bfloat16 val = zero;
         if (m_ok && k < K) {
@@ -263,11 +627,6 @@ __host__ __device__ constexpr size_t staged_smem_bytes(int W) {
          (size_t)TN * LDC * 4;
 }
 
-// The staged kernel works on the zero-padded plane P of (H + 2) x (W + 2)
-// voxels, flattened: output voxel (r, c) is virtual index v = r * (W + 2) + c,
-// and its tap (dy, dx) reads P[v + dy * (W + 2) + dx], contiguous in v. Virtual
-// columns c = W, W + 1 are computed and dropped (the TPU kernel's flat-lane
-// trick; 3 % extra work at W = 64, 50 % at W = 4).
 __global__ void __launch_bounds__(THREADS) conv3d_cs_staged_kernel(Args p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int WP = p.W + 2;
@@ -359,32 +718,108 @@ __global__ void __launch_bounds__(THREADS) conv3d_cs_staged_kernel(Args p) {
   if (p.stats != nullptr) store_stats(p, c_s, b, d, n0, s1, s2);
 }
 
+template <int TMP>
+int launch_packed(const PackedArgs& p, cudaStream_t s) {
+  const size_t smem = (size_t)STAGES * packed_stage_elems(TMP, p.W) * 2;
+  cudaError_t err = cudaFuncSetAttribute(conv3d_cs_packed_kernel<TMP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.Cout + TN - 1) / TN, p.D, p.B);
+  conv3d_cs_packed_kernel<TMP><<<grid, TMP, smem, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Args make_args(const void* x1, const void* x2, const void* pair_bias,
+               const void* aff_a, const void* aff_c, int B, int D, int C1,
+               int C2, int H, int W) {
+  Args p = {};
+  p.x1 = static_cast<const __nv_bfloat16*>(x1);
+  p.x2 = static_cast<const __nv_bfloat16*>(x2);
+  p.pair_bias = static_cast<const __nv_bfloat16*>(pair_bias);
+  p.aff_a = static_cast<const float*>(aff_a);
+  p.aff_c = static_cast<const float*>(aff_c);
+  p.B = B;
+  p.D = D;
+  p.C1 = C1;
+  p.C2 = C2;
+  p.H = H;
+  p.W = W;
+  return p;
+}
+
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// Every launcher runs on `stream` and returns cudaGetLastError() (0 = launched).
+
+// xp (B, D + 2, H + 2, W + 2, C1 + C2) from x1, x2, the pair bias and the
+// affine prologue; C1 and C2 multiples of 8. 16-byte loads along x when H*W
+// is a multiple of 8 and x1, x2 are 16-byte aligned, else one voxel a load.
+extern "C" int conv3d_cs_pack_launch(const void* x1, const void* x2,
+                                     const void* pair_bias, const void* aff_a,
+                                     const void* aff_c, void* xp, int B, int D,
+                                     int C1, int C2, int H, int W, void* stream) {
+  Args p = make_args(x1, x2, pair_bias, aff_a, aff_c, B, D, C1, C2, H, W);
+  p.out = static_cast<__nv_bfloat16*>(xp);
+  const int G = (C1 + C2) / 8;
+  const int S = H * W;
+  const long long P = (long long)(H + 2) * (W + 2);
+  const long long n_halo = (long long)B * (2 * P + (long long)D * (2 * (W + 2) + 2 * H)) * G;
+  const bool vec = S % 8 == 0 && reinterpret_cast<uintptr_t>(x1) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x2) % 16 == 0;
+  const long long n_int = (long long)B * D * (vec ? S / 8 : S) * G;
+  const long long n_total = n_int + n_halo;
+  const long long want = (n_total + PACK_THREADS - 1) / PACK_THREADS;
+  const int blocks = (int)(want < 132LL * 64 ? want : 132LL * 64);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (blocks == 0) return 0;
+  if (vec) {
+    conv3d_cs_pack_kernel<8><<<blocks, PACK_THREADS, 0, s>>>(p, n_int, n_total);
+  } else {
+    conv3d_cs_pack_kernel<1><<<blocks, PACK_THREADS, 0, s>>>(p, n_int, n_total);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The packed conv: xp from conv3d_cs_pack_launch with a tail of at least tm
+// voxels of storage past its end, Cin a multiple of 16, w in the per-block
+// layout (ceil(Cout / 32), 27 * Cin, 32) bf16; tm is 256 or 128.
+extern "C" int conv3d_cs_packed_launch(const void* xp, const void* w,
+                                       const void* bias, void* out, void* stats,
+                                       int B, int D, int Cin, int Cout, int H,
+                                       int W, int tm, void* stream) {
+  PackedArgs p;
+  p.xp = static_cast<const __nv_bfloat16*>(xp);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.stats = static_cast<float*>(stats);
+  p.B = B;
+  p.D = D;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  p.H = H;
+  p.W = W;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tm == 256) return launch_packed<256>(p, s);
+  if (tm == 128) return launch_packed<128>(p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The conv on (B, D, C, H*W) itself: w (27 * (C1 + C2), C_out) bf16; the
+// staged kernel when C1 and C2 are multiples of 16, else the gather kernel.
 extern "C" int conv3d_cs_launch(const void* x1, const void* x2,
                                 const void* pair_bias, const void* w,
                                 const void* bias, const void* aff_a,
                                 const void* aff_c, void* out, void* stats,
                                 int B, int D, int C1, int C2, int Cout, int H,
                                 int W, void* stream) {
-  Args p;
-  p.x1 = static_cast<const __nv_bfloat16*>(x1);
-  p.x2 = static_cast<const __nv_bfloat16*>(x2);
-  p.pair_bias = static_cast<const __nv_bfloat16*>(pair_bias);
+  Args p = make_args(x1, x2, pair_bias, aff_a, aff_c, B, D, C1, C2, H, W);
   p.w = static_cast<const __nv_bfloat16*>(w);
   p.bias = static_cast<const float*>(bias);
-  p.aff_a = static_cast<const float*>(aff_a);
-  p.aff_c = static_cast<const float*>(aff_c);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.stats = static_cast<float*>(stats);
-  p.B = B;
-  p.D = D;
-  p.C1 = C1;
-  p.C2 = C2;
   p.Cout = Cout;
-  p.H = H;
-  p.W = W;
   const dim3 grid((Cout + TN - 1) / TN, D, B);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C1 % CC == 0 && C2 % CC == 0) {

@@ -52,8 +52,10 @@ def get_library():
         if _LIB is not None or _TRIED:
             return _LIB
         _TRIED = True
-        out = library_path()
         try:
+            # hashing the source raises FileNotFoundError (an OSError) in an
+            # installed copy that lacks cc_label.cpp: scipy takes over then
+            out = library_path()
             if not os.path.exists(out):
                 _build(out)
             lib = ctypes.CDLL(out)

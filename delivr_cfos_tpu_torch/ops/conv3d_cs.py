@@ -1,6 +1,6 @@
 """3×3×3 SAME convolution on (B, D, C, H·W) bf16 activations.
 
-``conv3d_cs`` launches the hand-written CUDA kernel ``csrc/conv3d_cs.cu``
+``conv3d_cs`` launches the hand-written CUDA kernels of ``csrc/conv3d_cs.cu``
 (the counterpart of the TPU kernel ``delivr_cfos_tpu/ops/pallas/
 conv3d_cs.py:374``) on a CUDA tensor and runs ``conv3d_cs_reference``, its
 plain PyTorch version, on a CPU tensor. Every other device raises.
@@ -8,8 +8,15 @@ plain PyTorch version, on a CPU tensor. Every other device raises.
 Contract, as on the TPU: f32 accumulation, bf16 output; optional ``bias``;
 ``emit_stats`` adds the per-plane (Σx, Σx²) of the f32 output before
 rounding, (B, D, 2, C_out) f32; ``pair=(x2, w2[, bias2])`` convolves
-concat([x, bf16(x2 + bf16(bias2))]) without building it; ``in_affine=(a, c)``
-applies bf16(mish(x·a + c)) to the loaded input. Odd C_in is taken as is.
+concat([x, bf16(x2 + bf16(bias2))]); ``in_affine=(a, c)`` applies
+bf16(mish(x·a + c)) to the input. Odd C_in is taken as is.
+
+Two paths on the card, by a fixed shape rule (``conv3d_cs_path``):
+``packed`` where C1 and C2 are multiples of 16 — ``conv3d_cs_pack`` writes
+the conv's input once as xp (B, D+2, H+2, W+2, C_in), zero-padded, channels
+innermost, with the concat, pair bias and prologue applied, and the packed
+conv kernel reads it with 16-byte copies — and ``gather`` for any other
+C_in (the C_in = 1 first conv), which reads (B, D, C, H·W) itself.
 """
 
 from __future__ import annotations
@@ -21,6 +28,9 @@ import torch.nn.functional as F
 
 from delivr_cfos_tpu_torch.ops import _build
 from delivr_cfos_tpu_torch.utils.device import full_f32
+
+TN = 32  # output channels per block of the packed conv
+TAIL = 256  # voxels of storage past xp's end: the largest tile the conv reads past it
 
 
 def _mish(v: torch.Tensor) -> torch.Tensor:
@@ -34,15 +44,22 @@ def _split_pair(pair):
     return x2, w2, (pair[2] if len(pair) > 2 else None)
 
 
-def conv3d_cs_reference(x, weights, bias, *, h, w, in_affine=None,
-                        emit_stats=False, pair=None):
-    """Plain PyTorch version of ``conv3d_cs`` with the kernel's roundings:
-    inputs and weights rounded to bf16, the pair bias rounded to bf16 and
-    added in f32 with one rounding, the affine prologue rounded to bf16, an
-    f32 convolution without TF32, stats from the f32 output."""
-    if pair is not None and in_affine is not None:
-        raise ValueError("pair mode is incompatible with in_affine")
-    x2, w2, bias2 = _split_pair(pair)
+def conv3d_cs_path(c1: int, c2: int) -> str:
+    """The kernel path a CUDA call with C1 and C2 input channels takes."""
+    return "packed" if c1 % 16 == 0 and c2 % 16 == 0 else "gather"
+
+
+def packed_tile_rows(h: int, w: int) -> int:
+    """Output rows per tile of the packed conv: 256 where the padded plane
+    has more than 512 virtual voxels (levels 0-1 of the production window),
+    else 128, which wastes less of a small plane's last tile."""
+    return 256 if h * (w + 2) > 512 else 128
+
+
+def conv3d_cs_pack_reference(x, *, h, w, x2=None, bias2=None, in_affine=None):
+    """Plain PyTorch version of ``conv3d_cs_pack``: (B, D+2, H+2, W+2,
+    C1+C2) bf16 with zeros around, channel ci of x, or of bf16(x2 +
+    bf16(bias2)) for ci ≥ C1, then bf16(mish(v·a + c)) with ``in_affine``."""
     xf = x.to(torch.bfloat16).float()
     if x2 is not None:
         x2f = x2.to(torch.bfloat16).float()
@@ -50,20 +67,40 @@ def conv3d_cs_reference(x, weights, bias, *, h, w, in_affine=None,
             b2 = bias2.to(torch.bfloat16).float()[None, None, :, None]
             x2f = (x2f + b2).to(torch.bfloat16).float()
         xf = torch.cat([xf, x2f], dim=2)
-        weights = torch.cat([weights, w2], dim=3)
     if in_affine is not None:
         a, c = in_affine
         v = xf * a.float()[:, None, :, None] + c.float()[:, None, :, None]
-        xf = _mish(v).to(torch.bfloat16).float()
-    b_, d, cin, s = xf.shape
+        xf = _mish(v)
+    b_, d, cin, _ = xf.shape
+    xp = torch.zeros((b_, d + 2, h + 2, w + 2, cin), dtype=torch.bfloat16,
+                     device=x.device)
+    xp[:, 1:-1, 1:-1, 1:-1] = xf.reshape(b_, d, cin, h, w).permute(0, 1, 3, 4, 2)
+    return xp
+
+
+def conv3d_cs_reference(x, weights, bias, *, h, w, in_affine=None,
+                        emit_stats=False, pair=None):
+    """Plain PyTorch version of ``conv3d_cs`` with the kernel's roundings:
+    the input built by ``conv3d_cs_pack_reference`` (inputs rounded to
+    bf16, the pair bias rounded to bf16 and added in f32 with one rounding,
+    the affine prologue rounded to bf16), weights rounded to bf16, an f32
+    convolution without TF32, stats from the f32 output."""
+    if pair is not None and in_affine is not None:
+        raise ValueError("pair mode is incompatible with in_affine")
+    x2, w2, bias2 = _split_pair(pair)
+    xp = conv3d_cs_pack_reference(x, h=h, w=w, x2=x2, bias2=bias2,
+                                  in_affine=in_affine)
+    if w2 is not None:
+        weights = torch.cat([weights, w2], dim=3)
+    b_, d = xp.shape[0], xp.shape[1] - 2
     cout = weights.shape[-1]
-    x5 = xf.reshape(b_, d, cin, h, w).permute(0, 2, 1, 3, 4)
+    x5 = xp.float().permute(0, 4, 1, 2, 3)
     w5 = weights.to(torch.bfloat16).float().permute(4, 3, 0, 1, 2)
     with full_f32():
-        y = F.conv3d(x5, w5, padding=1)
+        y = F.conv3d(x5, w5)
     if bias is not None:
         y = y + bias.float()[None, :, None, None, None]
-    y = y.permute(0, 2, 1, 3, 4).reshape(b_, d, cout, s)
+    y = y.permute(0, 2, 1, 3, 4).reshape(b_, d, cout, h * w)
     out = y.to(torch.bfloat16)
     if not emit_stats:
         return out
@@ -87,6 +124,129 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr() if t is not None else None)
 
 
+def _inputs(x, h, w, x2, bias2, in_affine):
+    """Check the activations and prologue arguments of a CUDA call; returns
+    (x2, bias2 as bf16, a, c) ready for the kernels."""
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3d_cs runs on CUDA or the CPU, not {x.device}")
+    if x2 is not None and in_affine is not None:
+        raise ValueError("pair mode is incompatible with in_affine")
+    dev = x.device
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, D, C, H·W), got shape {tuple(x.shape)}")
+    b_, n_d, c1, s = x.shape
+    if s != h * w:
+        raise ValueError(f"plane size {s} != h·w = {h}·{w}")
+    _check(x, "x", torch.bfloat16, (b_, n_d, c1, s), dev)
+    c2 = 0 if x2 is None else x2.shape[2]
+    if x2 is not None:
+        _check(x2, "x2", torch.bfloat16, (b_, n_d, c2, s), dev)
+    pb = None
+    if bias2 is not None:
+        pb = bias2.to(device=dev, dtype=torch.bfloat16).contiguous()
+        _check(pb, "bias2", torch.bfloat16, (c2,), dev)
+    a = c = None
+    if in_affine is not None:
+        a, c = (t.to(torch.float32).contiguous() for t in in_affine)
+        _check(a, "in_affine a", torch.float32, (b_, c1 + c2), dev)
+        _check(c, "in_affine c", torch.float32, (b_, c1 + c2), dev)
+    return x2, pb, a, c
+
+
+def conv3d_cs_pack(x, *, h, w, x2=None, bias2=None, in_affine=None):
+    """The packed conv input: (B, D+2, H+2, W+2, C1+C2) bf16 from ``x``
+    (B, D, C1, H·W) bf16 and, in pair mode, ``x2`` (B, D, C2, H·W) bf16 with
+    its ``bias2``; C1 and C2 multiples of 8. On the card its storage runs
+    ``TAIL`` voxels past its end (never written), which the packed conv may
+    read into rows it drops."""
+    if x.device.type == "cpu":
+        return conv3d_cs_pack_reference(x, h=h, w=w, x2=x2, bias2=bias2,
+                                        in_affine=in_affine)
+    x2, pb, a, c = _inputs(x, h, w, x2, bias2, in_affine)
+    b_, n_d, c1, _ = x.shape
+    c2 = 0 if x2 is None else x2.shape[2]
+    if c1 % 8 or c2 % 8:
+        raise ValueError(f"conv3d_cs_pack needs C1 and C2 multiples of 8, got {c1}, {c2}")
+    cin = c1 + c2
+    shape = (b_, n_d + 2, h + 2, w + 2, cin)
+    n = b_ * (n_d + 2) * (h + 2) * (w + 2) * cin
+    xp = torch.empty(n + TAIL * cin, dtype=torch.bfloat16, device=x.device)[:n].view(shape)
+    lib = _launcher()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.conv3d_cs_pack_launch(
+            _ptr(x), _ptr(x2), _ptr(pb), _ptr(a), _ptr(c), _ptr(xp),
+            b_, n_d, c1, c2, h, w, ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"conv3d_cs_pack kernel launch failed: CUDA error {err}")
+    conv3d_cs_pack.launches += 1
+    return xp
+
+
+conv3d_cs_pack.launches = 0
+
+
+def kernel_weights(weights, w2=None):
+    """DHWIO weights (and pair mode's ``w2``) → (27·C_in, C_out) bf16, row
+    k = ((dz·3 + dy)·3 + dx)·C_in + ci."""
+    ws = [weights] if w2 is None else [weights, w2]
+    cout = weights.shape[-1]
+    cat = torch.cat(ws, dim=3).to(torch.bfloat16)
+    return cat.reshape(-1, cout).contiguous()
+
+
+def block_weights(w_k):
+    """(27·C_in, C_out) → the packed conv's layout, (⌈C_out/32⌉, 27·C_in, 32)
+    bf16: C_out zero-padded to a multiple of 32 and cut into one block's
+    contiguous tile."""
+    k, cout = w_k.shape
+    tiles = -(-cout // TN)
+    wp = F.pad(w_k, (0, tiles * TN - cout))
+    return wp.reshape(k, tiles, TN).permute(1, 0, 2).contiguous()
+
+
+def _outputs(b_, n_d, cout, s, emit_stats, dev):
+    out = torch.empty((b_, n_d, cout, s), dtype=torch.bfloat16, device=dev)
+    stats = (
+        torch.empty((b_, n_d, 2, cout), dtype=torch.float32, device=dev)
+        if emit_stats else None
+    )
+    return out, stats
+
+
+def conv3d_cs_packed(xp, w_blk, bias, *, cout, emit_stats=False):
+    """The packed conv kernel on the card: ``xp`` from ``conv3d_cs_pack``
+    (B, D+2, H+2, W+2, C_in) with its tail, C_in a multiple of 16;
+    ``w_blk`` from ``block_weights``. Returns what ``conv3d_cs`` returns."""
+    dev = xp.device
+    if dev.type != "cuda":
+        raise ValueError(f"the packed conv runs on CUDA, not {dev}")
+    b_, dp, hp, wp, cin = xp.shape
+    n_d, h, w = dp - 2, hp - 2, wp - 2
+    if cin % 16:
+        raise ValueError(f"the packed conv needs C_in a multiple of 16, got {cin}")
+    _check(xp, "xp", torch.bfloat16, xp.shape, dev)
+    if xp.untyped_storage().nbytes() - xp.storage_offset() * 2 < (xp.numel() + TAIL * cin) * 2:
+        raise ValueError(f"xp needs {TAIL} voxels of storage past its end (conv3d_cs_pack)")
+    _check(w_blk, "w_blk", torch.bfloat16, (-(-cout // TN), 27 * cin, TN), dev)
+    if bias is not None:
+        _check(bias, "bias", torch.float32, (cout,), dev)
+    out, stats = _outputs(b_, n_d, cout, h * w, emit_stats, dev)
+    lib = _launcher()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.conv3d_cs_packed_launch(
+            _ptr(xp), _ptr(w_blk), _ptr(bias), _ptr(out), _ptr(stats),
+            b_, n_d, cin, cout, h, w, packed_tile_rows(h, w),
+            ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"conv3d_cs kernel launch failed: CUDA error {err}")
+    conv3d_cs.launches += 1
+    return (out, stats) if emit_stats else out
+
+
 def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
               pair=None):
     """3×3×3 SAME conv. ``x``: (B, D, C_in, H·W) bf16; ``weights``: DHWIO
@@ -97,43 +257,24 @@ def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
             x, weights, bias, h=h, w=w, in_affine=in_affine,
             emit_stats=emit_stats, pair=pair,
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3d_cs runs on CUDA or the CPU, not {x.device}")
-    if pair is not None and in_affine is not None:
-        raise ValueError("pair mode is incompatible with in_affine")
+    x2, w2, bias2 = _split_pair(pair)
+    x2, pb, a, c = _inputs(x, h, w, x2, bias2, in_affine)
     dev = x.device
     b_, n_d, c1, s = x.shape
-    if s != h * w:
-        raise ValueError(f"plane size {s} != h·w = {h}·{w}")
     cout = weights.shape[-1]
-    x2, w2, bias2 = _split_pair(pair)
     c2 = 0 if x2 is None else x2.shape[2]
-    cin = c1 + c2
-    _check(x, "x", torch.bfloat16, (b_, n_d, c1, s), dev)
     _check(weights, "weights", None, (3, 3, 3, c1, cout), dev)
-    ws = [weights]
     if x2 is not None:
-        _check(x2, "x2", torch.bfloat16, (b_, n_d, c2, s), dev)
         _check(w2, "w2", None, (3, 3, 3, c2, cout), dev)
-        ws.append(w2)
-    # the kernel's weight layout: DHWIO flattened to (27·C_in, C_out) bf16
-    w_k = torch.cat(ws, dim=3).to(torch.bfloat16).reshape(27 * cin, cout).contiguous()
-    pb = None
-    if bias2 is not None:
-        pb = bias2.to(device=dev, dtype=torch.bfloat16).contiguous()
-        _check(pb, "bias2", torch.bfloat16, (c2,), dev)
+    w_k = kernel_weights(weights, w2)
     if bias is not None:
         _check(bias, "bias", torch.float32, (cout,), dev)
-    a = c = None
-    if in_affine is not None:
-        a, c = (t.to(torch.float32).contiguous() for t in in_affine)
-        _check(a, "in_affine a", torch.float32, (b_, cin), dev)
-        _check(c, "in_affine c", torch.float32, (b_, cin), dev)
-    out = torch.empty((b_, n_d, cout, s), dtype=torch.bfloat16, device=dev)
-    stats = (
-        torch.empty((b_, n_d, 2, cout), dtype=torch.float32, device=dev)
-        if emit_stats else None
-    )
+    if conv3d_cs_path(c1, c2) == "packed":
+        # xp is freed on return: the allocator orders its reuse on the stream
+        xp = conv3d_cs_pack(x, h=h, w=w, x2=x2, bias2=bias2, in_affine=in_affine)
+        return conv3d_cs_packed(xp, block_weights(w_k), bias, cout=cout,
+                                emit_stats=emit_stats)
+    out, stats = _outputs(b_, n_d, cout, s, emit_stats, dev)
     lib = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -151,10 +292,35 @@ def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
 conv3d_cs.launches = 0
 
 
+def _conv3d_cs_staged(x, w_k, *, h, w, cout, x2=None, bias2=None):
+    """The superseded staged kernel on (B, D, C, H·W), C1 and C2 multiples of
+    16, with stats: kept only so that chip_smoke.py times it beside the
+    packed path; counts no launch."""
+    b_, n_d, c1, s = x.shape
+    c2 = 0 if x2 is None else x2.shape[2]
+    pb = None if bias2 is None else bias2.to(torch.bfloat16).contiguous()
+    out, stats = _outputs(b_, n_d, cout, s, True, x.device)
+    with torch.cuda.device(x.device):
+        err = _launcher().conv3d_cs_launch(
+            _ptr(x), _ptr(x2), _ptr(pb), _ptr(w_k), _ptr(None), _ptr(None),
+            _ptr(None), _ptr(out), _ptr(stats), b_, n_d, c1, c2, cout, h, w,
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"conv3d_cs staged kernel launch failed: CUDA error {err}")
+    return out, stats
+
+
 def _launcher():
     lib = _build.load("conv3d_cs")
-    fn = lib.conv3d_cs_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    if lib.conv3d_cs_launch.argtypes is None:
+        lib.conv3d_cs_launch.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.conv3d_cs_pack_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.conv3d_cs_packed_launch.argtypes = (
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        for fn in (lib.conv3d_cs_launch, lib.conv3d_cs_pack_launch,
+                   lib.conv3d_cs_packed_launch):
+            fn.restype = ctypes.c_int
     return lib

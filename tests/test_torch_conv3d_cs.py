@@ -13,7 +13,16 @@ import jax.numpy as jnp
 import torch
 
 from delivr_cfos_tpu.ops.pallas.conv3d_cs import conv3d_cs as jax_conv3d_cs
-from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs, conv3d_cs_reference
+from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+    block_weights,
+    conv3d_cs,
+    conv3d_cs_pack,
+    conv3d_cs_pack_reference,
+    conv3d_cs_path,
+    conv3d_cs_reference,
+    kernel_weights,
+    packed_tile_rows,
+)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, D, H, W = 2, 5, 6, 8
@@ -157,3 +166,92 @@ def test_build_paths_are_keyed_by_source():
     assert path.startswith(_build.BUILD_ROOT)
     assert path.endswith("libconv3d_cs.so")
     assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def _prologue_then_pad(x, h, w, x2=None, bias2=None, in_affine=None):
+    """The conv's input built as the plain version built it before the pack
+    step: concat, pair bias and affine prologue on (B, D, C, H·W), then
+    F.pad of the channels-last volume."""
+    xf = x.float()
+    if x2 is not None:
+        x2f = x2.float()
+        if bias2 is not None:
+            x2f = (x2f + bias2.to(torch.bfloat16).float()[None, None, :, None])
+            x2f = x2f.to(torch.bfloat16).float()
+        xf = torch.cat([xf, x2f], dim=2)
+    if in_affine is not None:
+        a, c = in_affine
+        v = xf * a[:, None, :, None] + c[:, None, :, None]
+        xf = (v * torch.tanh(torch.nn.functional.softplus(v))).to(torch.bfloat16).float()
+    b_, d, cin, _ = xf.shape
+    x5 = xf.reshape(b_, d, cin, h, w).permute(0, 1, 3, 4, 2)
+    return torch.nn.functional.pad(x5, (0, 0, 1, 1, 1, 1, 1, 1)).to(torch.bfloat16)
+
+
+def _pack_case(kind, h, w):
+    rng = np.random.default_rng(len(kind) * 100 + h * w)
+    c1, c2 = (4, 6) if kind == "pair" else (4, 0)
+    x = _bf16(rng.standard_normal((B, D, c1, h * w)) * 2)
+    kw = {}
+    if kind == "pair":
+        kw["x2"] = _bf16(rng.standard_normal((B, D, c2, h * w)))
+        kw["bias2"] = _t(rng.standard_normal(c2))
+    if kind == "affine":
+        kw["in_affine"] = (_t(rng.uniform(0.5, 1.5, (B, c1))),
+                           _t(rng.normal(0, 0.3, (B, c1))))
+    return x, kw
+
+
+@pytest.mark.parametrize("h,w", [(H, W), (5, 7)])  # H·W = 48, and odd 35
+@pytest.mark.parametrize("kind", ["plain", "pair", "affine"])
+def test_pack_reference_is_the_plain_prologue_bit_for_bit(kind, h, w):
+    x, kw = _pack_case(kind, h, w)
+    got = conv3d_cs_pack_reference(x, h=h, w=w, **kw)
+    want = _prologue_then_pad(x, h, w, **kw)
+    assert got.dtype == torch.bfloat16
+    assert got.shape == (B, D + 2, h + 2, w + 2, want.shape[-1])
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    # the wrapper on a CPU tensor is the plain version, and counts no launch
+    before = conv3d_cs_pack.launches
+    assert torch.equal(conv3d_cs_pack(x, h=h, w=w, **kw), got)
+    assert conv3d_cs_pack.launches == before
+
+
+@pytest.mark.parametrize("h,w", [(H, W), (5, 7)])
+@pytest.mark.parametrize("kind", ["plain", "pair", "affine"])
+def test_conv_of_the_packed_input_matches_jax(kind, h, w):
+    """F.conv3d without padding over the packed plain input, against the
+    JAX kernel in interpret mode on the same values: one bf16 ULP."""
+    x, kw = _pack_case(kind, h, w)
+    rng = np.random.default_rng(11)
+    cin = x.shape[2] + (kw["x2"].shape[2] if "x2" in kw else 0)
+    wt = (rng.standard_normal((3, 3, 3, cin, 5)) * 0.2).astype(np.float32)
+    xp = conv3d_cs_pack_reference(x, h=h, w=w, **kw)
+    w5 = _bf16(wt).float().permute(4, 3, 0, 1, 2)
+    y = torch.nn.functional.conv3d(xp.float().permute(0, 4, 1, 2, 3), w5)
+    got = y.permute(0, 2, 1, 3, 4).reshape(B, D, 5, h * w).to(torch.bfloat16)
+    jx = jnp.asarray(_np(x), jnp.bfloat16)
+    jkw = {}
+    if kind == "pair":
+        c1 = x.shape[2]
+        jkw["pair"] = (jnp.asarray(_np(kw["x2"]), jnp.bfloat16),
+                       jnp.asarray(wt[:, :, :, c1:]), jnp.asarray(kw["bias2"].numpy()))
+        wt = wt[:, :, :, :c1]
+    if kind == "affine":
+        jkw["in_affine"] = tuple(jnp.asarray(t.numpy()) for t in kw["in_affine"])
+    want = jax_conv3d_cs(jx, jnp.asarray(wt), None, h=h, w=w, interpret=True, **jkw)
+    assert_within_one_ulp(_np(got), want)
+
+
+def test_path_rule_and_block_weights():
+    assert conv3d_cs_path(32, 0) == conv3d_cs_path(32, 32) == "packed"
+    assert conv3d_cs_path(1, 0) == conv3d_cs_path(16, 8) == "gather"
+    # 256-row tiles on the level-0/1 planes, 128 on levels 2-4
+    assert [packed_tile_rows(96 >> i, 64 >> i) for i in range(5)] == [256, 256, 128, 128, 128]
+    w = torch.arange(27 * 16 * 40, dtype=torch.float32).reshape(3, 3, 3, 16, 40)
+    w_k = kernel_weights(w[..., :10, :], w[..., 10:, :])
+    assert torch.equal(w_k, w.to(torch.bfloat16).reshape(27 * 16, 40))
+    blk = block_weights(w_k)
+    assert blk.shape == (2, 27 * 16, 32)
+    assert torch.equal(blk[0], w_k[:, :32]) and torch.equal(blk[1, :, :8], w_k[:, 32:])
+    assert not blk[1, :, 8:].any()

@@ -11,7 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs, conv3d_cs_reference
+from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+    conv3d_cs,
+    conv3d_cs_pack,
+    conv3d_cs_pack_reference,
+    conv3d_cs_path,
+    conv3d_cs_reference,
+)
 from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
     MAX_C,
     deconv2x_cs,
@@ -49,7 +55,7 @@ def _ulps(got, want):
     (2, 5, 6, 8, 1, 0, 4, False),
     (2, 5, 6, 8, 3, 0, 6, True),
     (1, 4, 9, 7, 4, 5, 40, False),
-    # staged path: level-0/1/2-like rows, the 6 x 4 plane of level 4, an odd
+    # packed path: level-0/1/2-like rows, the 6 x 4 plane of level 4, an odd
     # width, pair mode, the prologue, a plane of one tile row
     (2, 4, 5, 64, 16, 0, 32, False),
     (2, 6, 6, 4, 64, 0, 32, False),
@@ -84,6 +90,85 @@ def test_conv3d_cs_kernel_matches_plain_version(dev, b, d, h, w, cin, c2, cout,
     torch.testing.assert_close(
         st, st_want, rtol=1e-3, atol=1e-3 * float(st_want.abs().max())
     )
+
+
+@pytest.mark.parametrize("b,d,h,w,c1,c2,cout", [
+    # packed path, shapes that leave the ring's last tile ragged: one
+    # partial tile (36 virtual rows of 128), a last tile of one row
+    # (3 x 43 = 129), the 256-row tiles with a last tile of 82 rows
+    # (9 x 66 = 594), three channel chunks a tap plane (C_in = 48), C_out
+    # cut into a full and a partial 32-wide block
+    (2, 3, 6, 4, 16, 0, 32),
+    (1, 2, 3, 41, 32, 0, 16),
+    (1, 3, 9, 64, 32, 16, 40),
+    (2, 2, 5, 9, 48, 0, 72),
+])
+def test_conv3d_cs_packed_ring_with_ragged_tiles(dev, b, d, h, w, c1, c2, cout):
+    g = torch.Generator().manual_seed(h * 1000 + w)
+    x = torch.randn((b, d, c1, h * w), generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn((3, 3, 3, c1, cout), generator=g) * 0.2).to(dev)
+    kw = {}
+    if c2:
+        kw["pair"] = (torch.randn((b, d, c2, h * w), generator=g).to(dev, torch.bfloat16),
+                      (torch.randn((3, 3, 3, c2, cout), generator=g) * 0.2).to(dev),
+                      torch.randn((c2,), generator=g).to(dev))
+    assert conv3d_cs_path(c1, c2) == "packed"
+    before = conv3d_cs.launches, conv3d_cs_pack.launches
+    got, st = conv3d_cs(x, wt, None, h=h, w=w, emit_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert (conv3d_cs.launches, conv3d_cs_pack.launches) == (before[0] + 1, before[1] + 1)
+    want, st_want = conv3d_cs_reference(x, wt, None, h=h, w=w, emit_stats=True, **kw)
+    assert _ulps(got, want) <= 1.0
+    torch.testing.assert_close(
+        st, st_want, rtol=1e-3, atol=1e-3 * float(st_want.abs().max())
+    )
+    # the stats reduce in a fixed order: the same bits on every launch
+    again = conv3d_cs(x, wt, None, h=h, w=w, emit_stats=True, **kw)
+    assert torch.equal(again[0], got) and torch.equal(again[1], st)
+
+
+@pytest.mark.parametrize("b,d,h,w,c1,c2,bias2,affine", [
+    # 16-byte loads (H·W % 8 == 0): the level-0 row, W = 4 (8 voxels cross
+    # two rows), pair mode with its bias, the affine prologue
+    (2, 3, 4, 64, 32, 0, False, False),
+    (2, 6, 6, 4, 64, 0, False, True),
+    (1, 3, 9, 16, 32, 32, True, False),
+    # one voxel a load: ragged planes (H·W = 35, 15), C = 8 groups
+    (1, 3, 5, 7, 16, 16, True, False),
+    (2, 2, 3, 5, 8, 0, False, True),
+])
+def test_conv3d_cs_pack_kernel_matches_plain_version(dev, b, d, h, w, c1, c2,
+                                                     bias2, affine):
+    """Bit for bit: the kernel rounds as the plain version does (the pair
+    bias sum once, the affine product and sum apart, PyTorch's mish)."""
+    g = torch.Generator().manual_seed(c1 * 10 + c2 + w)
+    x = (torch.randn((b, d, c1, h * w), generator=g) * 2).to(dev, torch.bfloat16)
+    kw = {}
+    if c2:
+        kw["x2"] = torch.randn((b, d, c2, h * w), generator=g).to(dev, torch.bfloat16)
+    if bias2:
+        kw["bias2"] = torch.randn((c2,), generator=g).to(dev)
+    if affine:
+        kw["in_affine"] = ((torch.rand((b, c1 + c2), generator=g) + 0.5).to(dev),
+                           (torch.randn((b, c1 + c2), generator=g) * 0.3).to(dev))
+    before = conv3d_cs_pack.launches
+    got = conv3d_cs_pack(x, h=h, w=w, **kw)
+    torch.cuda.synchronize()
+    assert conv3d_cs_pack.launches == before + 1
+    want = conv3d_cs_pack_reference(x, h=h, w=w, **kw)
+    assert got.shape == want.shape == (b, d + 2, h + 2, w + 2, c1 + c2)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def test_conv3d_cs_pack_on_a_misaligned_view(dev):
+    """A contiguous input that starts off a 16-byte boundary is read one
+    voxel at a time and gives the plain version's bits."""
+    base = torch.randn(1 + 2 * 3 * 16 * 32, device=dev).to(torch.bfloat16)
+    x = base[1:].reshape(2, 3, 16, 32)
+    got = conv3d_cs_pack(x, h=4, w=8)
+    assert torch.equal(got, conv3d_cs_pack_reference(x, h=4, w=8))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        conv3d_cs_pack(x[:, :, :12].contiguous(), h=4, w=8)
 
 
 def test_conv3d_cs_rejects_what_the_kernel_does_not_take(dev):

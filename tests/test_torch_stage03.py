@@ -213,3 +213,45 @@ def test_stage3_imports_no_pandas():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_without_the_native_source_stage3_takes_scipy(tmp_path):
+    """An installed copy without native/cc_label.cpp: ``get_library`` returns
+    None (hashing the missing source raises inside its ``try``), the native
+    labeler answers None, and count_blobs writes the native run's CSV with
+    the scipy engine."""
+    import shutil
+
+    pkg = tmp_path / "site" / "delivr_cfos_tpu_torch"
+    shutil.copytree(os.path.join(ROOT, "delivr_cfos_tpu_torch"), pkg,
+                    ignore=shutil.ignore_patterns("__pycache__", "cc_label.cpp"))
+    assert not (pkg / "native" / "cc_label.cpp").exists()
+    vol = _boxes(seed=8)
+    blob = str(tmp_path / "blob")
+    _write_binaries(blob, "mouse", vol)
+    native = _run(PipelineConfig, count_blobs, blob, str(tmp_path / "native") + os.sep,
+                  vol.shape, "ram_native")
+    post = str(tmp_path / "scipy") + os.sep
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import delivr_cfos_tpu_torch as port\n"
+        "from delivr_cfos_tpu_torch.config import PipelineConfig\n"
+        "from delivr_cfos_tpu_torch.native.build import get_library\n"
+        "from delivr_cfos_tpu_torch.native.cc import cc_label_native\n"
+        "from delivr_cfos_tpu_torch.pipeline.stage03_count_blobs import count_blobs\n"
+        f"assert port.__file__.startswith({str(tmp_path)!r}), port.__file__\n"
+        "assert get_library() is None\n"
+        "assert cc_label_native(np.ones((2, 2, 2), np.uint8)) is None\n"
+        "cfg = PipelineConfig.from_dict({'postprocessing': {'output_location': "
+        f"{post!r}, 'cc_workers': 1}}, 'FLAGS': {{'ABSPATHS': True, 'LOAD_ALL_RAM': True}}}})\n"
+        f"print(count_blobs(cfg, {blob!r}, 0, 'mouse', (1, 1, *{vol.shape!r})))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(tmp_path / "site"), OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert not (tmp_path / "site" / "build").exists()  # nothing was built
+    with open(res.stdout.strip().splitlines()[-1], "rb") as f:
+        assert f.read() == native[0]
+    assert sorted(os.listdir(post)) == native[1]
