@@ -88,7 +88,6 @@ constexpr int CC = 16;        // input channels per stage
 constexpr int LDW = TN + 8;   // weights row-major: W[t, k, n] at w_s[(t*CC+k)*LDW+n]
 // packed path
 constexpr int PCC = 16;       // input channels per stage
-constexpr int STAGES = 3;     // ring depth
 constexpr int LDX = PCC + 8;  // span row: one voxel's 16 channels, padded
 constexpr int LDP = TN + 8;   // weight row: one K row's 32 output channels
 constexpr int W_STAGE = 9 * PCC * LDP;  // bf16 of one stage's weights
@@ -289,9 +288,13 @@ __host__ __device__ constexpr int packed_stage_elems(int tm, int W) {
   return (tm + 2 * (W + 2) + 2) * LDX + W_STAGE;
 }
 
-template <int TMP>
-__global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(PackedArgs p) {
-  constexpr int NW = TMP / 32;
+// TMP tile rows, WM rows a warp (32 or 64), NST stages in the ring, MINB
+// blocks an SM asked of the register allocator.
+template <int TMP, int WM, int NST, int MINB>
+__global__ void __launch_bounds__(TMP / WM * 32, MINB) conv3d_cs_packed_kernel(PackedArgs p) {
+  constexpr int NW = TMP / WM;
+  constexpr int MI = WM / 16;  // 16-row blocks a warp
+  constexpr int STAGES = NST;
   extern __shared__ __align__(128) unsigned char smem[];
   const int WP = p.W + 2;
   const int P = (p.H + 2) * WP;
@@ -324,13 +327,13 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
     const uint32_t a_s = smem0 + (uint32_t)((it % STAGES) * stage_elems) * 2u;
     const uint32_t w_s = a_s + (uint32_t)(NS * LDX) * 2u;
     const __nv_bfloat16* src = xb + ((size_t)dz * P + (size_t)t * TMP) * cin + c0;
-    for (int i = tid; i < NS * 2; i += TMP) {
+    for (int i = tid; i < NS * 2; i += NW * 32) {
       const int q = i >> 1;
       const int h = (i & 1) * 8;
       cp_async16(a_s + (uint32_t)(q * LDX + h) * 2u, src + (size_t)q * cin + h);
     }
     const __nv_bfloat16* wsrc = wb + ((size_t)dz * 9 * cin + c0) * TN;
-    for (int i = tid; i < 9 * PCC * (TN / 8); i += TMP) {
+    for (int i = tid; i < 9 * PCC * (TN / 8); i += NW * 32) {
       const int row = i >> 2;  // j * PCC + kk
       const int q = (i & 3) * 8;
       const int j = row / PCC;
@@ -340,14 +343,14 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
     }
   };
 
-  float acc[2][4][4];
+  float acc[MI][4][4];
   float s1[4][2], s2[4][2];
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) s1[ni][e] = s2[ni][e] = 0.f;
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
+    for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
       for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
     }
@@ -355,7 +358,7 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
   // ldmatrix row addresses of this lane: A rows (lane & 15) of the warp's
   // 16-row block, channels (lane >> 4) * 8; B K rows (lane & 15), output
   // channels (lane >> 4) * 8 of a 16-wide block
-  const uint32_t a_lane = (uint32_t)(((warp * 32 + (lane & 15)) * LDX + (lane >> 4) * 8) * 2);
+  const uint32_t a_lane = (uint32_t)(((warp * WM + (lane & 15)) * LDX + (lane >> 4) * 8) * 2);
   const uint32_t b_lane = (uint32_t)(((lane & 15) * LDP + (lane >> 4) * 8) * 2);
 
 #pragma unroll
@@ -376,9 +379,9 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
 #pragma unroll
     for (int j = 0; j < 9; ++j) {
       const int off = (j / 3) * WP + (j % 3);
-      uint32_t af[2][4], bq[2][4];
+      uint32_t af[MI][4], bq[2][4];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
+      for (int mi = 0; mi < MI; ++mi) {
         ldmatrix_x4(af[mi], a_s + a_lane + (uint32_t)((off + 16 * mi) * LDX * 2));
       }
 #pragma unroll
@@ -386,7 +389,7 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
         ldmatrix_x4_trans(bq[nh], w_s + b_lane + (uint32_t)((j * PCC * LDP + nh * 16) * 2));
       }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
+      for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
           mma_bf16(acc[mi][ni], af[mi], bq[ni >> 1][(ni & 1) * 2],
@@ -400,10 +403,10 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
       // v0 + i = r * WP + c; columns c >= W and rows r >= H are dropped
       const int S = p.H * p.W;
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
+      for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int v = v0 + warp * 32 + 16 * mi + (lane >> 2) + 8 * h;
+          const int v = v0 + warp * WM + 16 * mi + (lane >> 2) + 8 * h;
           const int r = v / WP;
           const int c = v - r * WP;
           if (r < p.H && c < p.W) {
@@ -427,7 +430,7 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
         }
       }
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
+      for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
 #pragma unroll
@@ -718,15 +721,15 @@ __global__ void __launch_bounds__(THREADS) conv3d_cs_staged_kernel(Args p) {
   if (p.stats != nullptr) store_stats(p, c_s, b, d, n0, s1, s2);
 }
 
-template <int TMP>
+template <int TMP, int WM, int NST, int MINB>
 int launch_packed(const PackedArgs& p, cudaStream_t s) {
-  const size_t smem = (size_t)STAGES * packed_stage_elems(TMP, p.W) * 2;
-  cudaError_t err = cudaFuncSetAttribute(conv3d_cs_packed_kernel<TMP>,
+  const size_t smem = (size_t)NST * packed_stage_elems(TMP, p.W) * 2;
+  cudaError_t err = cudaFuncSetAttribute(conv3d_cs_packed_kernel<TMP, WM, NST, MINB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.Cout + TN - 1) / TN, p.D, p.B);
-  conv3d_cs_packed_kernel<TMP><<<grid, TMP, smem, s>>>(p);
+  conv3d_cs_packed_kernel<TMP, WM, NST, MINB><<<grid, TMP / WM * 32, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -801,8 +804,16 @@ extern "C" int conv3d_cs_packed_launch(const void* xp, const void* w,
   p.H = H;
   p.W = W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tm == 256) return launch_packed<256>(p, s);
-  if (tm == 128) return launch_packed<128>(p, s);
+  switch (tm) {
+    case 256: return launch_packed<256, 32, 3, 2>(p, s);
+    case 128: return launch_packed<128, 32, 3, 4>(p, s);
+    case 1: return launch_packed<256, 64, 3, 2>(p, s);
+    case 2: return launch_packed<256, 64, 2, 3>(p, s);
+    case 3: return launch_packed<128, 64, 3, 4>(p, s);
+    case 4: return launch_packed<512, 64, 3, 1>(p, s);
+    case 5: return launch_packed<256, 32, 4, 1>(p, s);
+    case 6: return launch_packed<256, 32, 2, 3>(p, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
