@@ -166,9 +166,9 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
     f32 reference fits beside the full-batch tensors); on the packed path
     also the pack against its plain version, bit for bit. Returns a row."""
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        _conv3d_cs_staged, block_weights, conv3d_cs, conv3d_cs_pack,
+        block_weights, conv3d_cs, conv3d_cs_pack,
         conv3d_cs_pack_reference, conv3d_cs_packed, conv3d_cs_path,
-        conv3d_cs_reference, kernel_weights,
+        conv3d_cs_reference, conv3d_cs_resources, kernel_weights,
     )
 
     dev = torch.device("cuda")
@@ -230,17 +230,13 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
             del xp_want
     del got, st, out
     ms = timed_ms(lambda: conv3d_cs(x, wt, None, **kw))
-    pack_ms = staged_ms = None
+    pack_ms = None
     kernel_ms = ms
     if xp is not None:
         w_blk = block_weights(kernel_weights(wt, None if pair is None else pair[1]))
         pack_ms = timed_ms(lambda: conv3d_cs_pack(x, **pk))
         kernel_ms = timed_ms(lambda: conv3d_cs_packed(xp, w_blk, None, cout=cout,
                                                       emit_stats=emit_stats))
-        if aff is None:  # the superseded staged kernel, timed beside it
-            w_k = kernel_weights(wt, None if pair is None else pair[1])
-            staged_ms = timed_ms(lambda: _conv3d_cs_staged(
-                x, w_k, h=h, w=w, cout=cout, x2=pk["x2"], bias2=pk["bias2"]))
     del xp
 
     # yardsticks: one cuDNN bf16 conv of the same inputs, pre-laid-out NCDHW,
@@ -261,6 +257,7 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
     del xin
     bms, by = bound_ms(b, d, s, cin, cout, emit_stats)
     flops = 2.0 * 27 * cin * cout * b * d * s
+    regs, blocks_per_sm = conv3d_cs_resources(c1, c2, h, w)
     sum_ms = kernel_ms + (pack_ms or 0.0)
     row = dict(phase="kernel", card=card, case=name, path=path, b=b, d=d, h=h, w=w,
                c_in=cin, c_out=cout, pair=bool(c2), emit_stats=emit_stats,
@@ -268,12 +265,13 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
                stats_tol_ratio=st_ratio, pack_equal=pack_equal,
                pack_max_abs_err=pack_err if path == "packed" else None,
                kernel_ms=kernel_ms, pack_ms=pack_ms, ms=sum_ms, wrapper_ms=ms,
-               staged_ms=staged_ms, plain_ms=plain_ms, pack_plain_ms=pack_plain_ms,
+               plain_ms=plain_ms, pack_plain_ms=pack_plain_ms,
                library_ms=library_ms, pack_library_ms=pack_library_ms,
                bound_ms=bms, bound_by=by,
                pack_bound_ms=1e3 * pack_bytes(b, d, h, w, cin) / PEAK_BYTES
                if path == "packed" else None,
-               tflops=flops / sum_ms / 1e9, kernel_tflops=flops / kernel_ms / 1e9)
+               tflops=flops / sum_ms / 1e9, kernel_tflops=flops / kernel_ms / 1e9,
+               registers=regs, blocks_per_sm=blocks_per_sm)
     emit(row)
     if ulps > 1.0 or st_ratio > 1.0:
         raise AssertionError(f"conv3d_cs disagrees with its plain version: {row}")
@@ -927,7 +925,6 @@ def main() -> int:
               kernel_ms=sum(r["kernel_ms"] for r in rows),
               pack_ms=sum(r["pack_ms"] or 0.0 for r in rows),
               ms=sum(r["ms"] for r in rows),
-              staged_ms=sum(r["staged_ms"] or 0.0 for r in rows),
               bound_ms=sum(r["bound_ms"] for r in rows),
               library_ms=sum(r["library_ms"] for r in rows)))
     emit({"kernels": [{

@@ -50,7 +50,10 @@
 //   and 9 * 16 * 40 * 2 = 11520 of weights: at TM = 256 and W = 64,
 //   30240 bytes, 90720 for the ring of 3, so 2 blocks of 256 threads fit an
 //   SM (the bound __launch_bounds__ asks for); at TM = 128 (planes of at
-//   most 512 virtual voxels, levels 2-4) 4 blocks of 128.
+//   most 128 virtual voxels, levels 3-4) 4 blocks of 128. Measured
+//   (conv3d_cs_variants.py in the history): 64-row warp tiles, a ring of 2
+//   or 4, or 512-row tiles move the level-0 convs by -5 % to +29 %, and
+//   256-row tiles beat 128 from the 24 x 16 plane of level 2 up.
 // - conv3d_cs_gather_kernel (any other C_in): per chunk of 32 K columns, which
 //   cross tap boundaries so K = 27 * C_in is not padded, the block gathers the
 //   im2col tile straight from global memory and runs nvcuda::wmma.
@@ -75,19 +78,18 @@ namespace {
 
 constexpr int TN = 32;        // output channels per block (GEMM columns)
 // gather path
-constexpr int GTM = 128;      // output voxels per tile (GEMM rows)
+constexpr int TM = 128;       // output voxels per tile (GEMM rows)
 constexpr int THREADS = 256;  // 8 warps; warp w owns tile rows [16w, 16w + 16)
-constexpr int LDC = GTM + 4;  // C col-major: C[m, n] at c_s[n * LDC + m]
+constexpr int LDC = TM + 4;  // C col-major: C[m, n] at c_s[n * LDC + m]
 constexpr int NJ = TN / 2;    // output channels per thread in the epilogue
 constexpr int TK = 32;        // K per shared-memory stage
-constexpr int LDA = GTM + 8;  // A col-major: A[m, k] at a_s[k * LDA + m]
+constexpr int LDA = TM + 8;  // A col-major: A[m, k] at a_s[k * LDA + m]
 constexpr int LDB = TN + 8;   // B row-major: B[k, n] at b_s[k * LDB + n]
-// staged path (superseded by the packed path)
-constexpr int TM = 128;
-constexpr int CC = 16;        // input channels per stage
-constexpr int LDW = TN + 8;   // weights row-major: W[t, k, n] at w_s[(t*CC+k)*LDW+n]
 // packed path
 constexpr int PCC = 16;       // input channels per stage
+constexpr int STAGES = 3;     // ring depth
+constexpr int WM = 32;        // tile rows a warp
+constexpr int MI = WM / 16;   // 16-row mma blocks a warp
 constexpr int LDX = PCC + 8;  // span row: one voxel's 16 channels, padded
 constexpr int LDP = TN + 8;   // weight row: one K row's 32 output channels
 constexpr int W_STAGE = 9 * PCC * LDP;  // bf16 of one stage's weights
@@ -288,13 +290,9 @@ __host__ __device__ constexpr int packed_stage_elems(int tm, int W) {
   return (tm + 2 * (W + 2) + 2) * LDX + W_STAGE;
 }
 
-// TMP tile rows, WM rows a warp (32 or 64), NST stages in the ring, MINB
-// blocks an SM asked of the register allocator.
-template <int TMP, int WM, int NST, int MINB>
-__global__ void __launch_bounds__(TMP / WM * 32, MINB) conv3d_cs_packed_kernel(PackedArgs p) {
+template <int TMP>
+__global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(PackedArgs p) {
   constexpr int NW = TMP / WM;
-  constexpr int MI = WM / 16;  // 16-row blocks a warp
-  constexpr int STAGES = NST;
   extern __shared__ __align__(128) unsigned char smem[];
   const int WP = p.W + 2;
   const int P = (p.H + 2) * WP;
@@ -327,13 +325,13 @@ __global__ void __launch_bounds__(TMP / WM * 32, MINB) conv3d_cs_packed_kernel(P
     const uint32_t a_s = smem0 + (uint32_t)((it % STAGES) * stage_elems) * 2u;
     const uint32_t w_s = a_s + (uint32_t)(NS * LDX) * 2u;
     const __nv_bfloat16* src = xb + ((size_t)dz * P + (size_t)t * TMP) * cin + c0;
-    for (int i = tid; i < NS * 2; i += NW * 32) {
+    for (int i = tid; i < NS * 2; i += TMP) {
       const int q = i >> 1;
       const int h = (i & 1) * 8;
       cp_async16(a_s + (uint32_t)(q * LDX + h) * 2u, src + (size_t)q * cin + h);
     }
     const __nv_bfloat16* wsrc = wb + ((size_t)dz * 9 * cin + c0) * TN;
-    for (int i = tid; i < 9 * PCC * (TN / 8); i += NW * 32) {
+    for (int i = tid; i < 9 * PCC * (TN / 8); i += TMP) {
       const int row = i >> 2;  // j * PCC + kk
       const int q = (i & 3) * 8;
       const int j = row / PCC;
@@ -477,16 +475,14 @@ __global__ void __launch_bounds__(TMP / WM * 32, MINB) conv3d_cs_packed_kernel(P
 }
 
 // ---------------------------------------------------------------------------
-// gather and staged conv on (B, D, C, H*W)
+// gather conv on (B, D, C, H*W)
 
 // Epilogue of one 128-voxel tile: accumulators → c_s → bf16 output (+ bias),
-// and this thread's running stats of the f32 values.
-//
-// Tile row i is output voxel (r, c) with m0 + i = r * row + c; columns
-// c >= W of a padded row (row > W) are dropped.
+// and this thread's running stats of the f32 values. Tile row i is output
+// voxel m0 + i.
 __device__ __forceinline__ void store_tile(const Args& p, AccFrag (&acc)[TN / 16],
                                            float* c_s, int b, int d, int n0,
-                                           int m0, int row, float (&s1)[NJ],
+                                           int m0, float (&s1)[NJ],
                                            float (&s2)[NJ]) {
   const int tid = threadIdx.x;
   const int warp = tid / 32;
@@ -497,12 +493,10 @@ __device__ __forceinline__ void store_tile(const Args& p, AccFrag (&acc)[TN / 16
                             wmma::mem_col_major);
   }
   __syncthreads();
-  const int m_t = tid % GTM;
-  const int k_t = tid / GTM;
-  const int r = (m0 + m_t) / row;
-  const int c = (m0 + m_t) % row;
-  const int m = r * p.W + c;
-  if (r < p.H && c < p.W) {
+  const int m_t = tid % TM;
+  const int k_t = tid / TM;
+  const int m = m0 + m_t;
+  if (m < S) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int nn = k_t + 2 * j;
@@ -525,8 +519,8 @@ __device__ __forceinline__ void store_stats(const Args& p, float* c_s, int b,
                                             int d, int n0, const float (&s1)[NJ],
                                             const float (&s2)[NJ]) {
   const int tid = threadIdx.x;
-  const int m_t = tid % GTM;
-  const int k_t = tid / GTM;
+  const int m_t = tid % TM;
+  const int k_t = tid / TM;
   for (int q = 0; q < 2; ++q) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
@@ -535,7 +529,7 @@ __device__ __forceinline__ void store_stats(const Args& p, float* c_s, int b,
     __syncthreads();
     if (tid < TN && n0 + tid < p.Cout) {
       float s = 0.f;
-      for (int i = 0; i < GTM; ++i) s += c_s[tid * LDC + i];
+      for (int i = 0; i < TM; ++i) s += c_s[tid * LDC + i];
       p.stats[(((size_t)b * p.D + d) * 2 + q) * p.Cout + n0 + tid] = s;
     }
     __syncthreads();
@@ -557,14 +551,14 @@ __global__ void __launch_bounds__(THREADS) conv3d_cs_gather_kernel(Args p) {
   const int K = 27 * cin;
   const int n_chunks = (K + TK - 1) / TK;
   const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const int m_t = tid % GTM;
-  const int k_t = tid / GTM;
+  const int m_t = tid % TM;
+  const int k_t = tid / TM;
 
   float s1[NJ], s2[NJ];
 #pragma unroll
   for (int j = 0; j < NJ; ++j) s1[j] = s2[j] = 0.f;
 
-  for (int m0 = 0; m0 < S; m0 += GTM) {
+  for (int m0 = 0; m0 < S; m0 += TM) {
     AccFrag acc[TN / 16];
 #pragma unroll
     for (int nf = 0; nf < TN / 16; ++nf) wmma::fill_fragment(acc[nf], 0.f);
@@ -575,7 +569,7 @@ __global__ void __launch_bounds__(THREADS) conv3d_cs_gather_kernel(Args p) {
 
     for (int kc = 0; kc < n_chunks; ++kc) {
       // A: im2col gather of 128 voxels x 32 K columns
-      for (int kk = k_t; kk < TK; kk += THREADS / GTM) {
+      for (int kk = k_t; kk < TK; kk += THREADS / TM) {
         const int k = kc * TK + kk;
         __nv_bfloat16 val = zero;
         if (m_ok && k < K) {
@@ -617,119 +611,20 @@ __global__ void __launch_bounds__(THREADS) conv3d_cs_gather_kernel(Args p) {
       }
       __syncthreads();
     }
-    store_tile(p, acc, c_s, b, d, n0, m0, p.W, s1, s2);
+    store_tile(p, acc, c_s, b, d, n0, m0, s1, s2);
   }
   if (p.stats != nullptr) store_stats(p, c_s, b, d, n0, s1, s2);
 }
 
-// Dynamic shared memory of the staged kernel for plane width W: the input
-// span of one tile (TM + 2 padded rows + 2 voxels) of the three input planes,
-// the chunk's weights, the f32 output tile.
-__host__ __device__ constexpr size_t staged_smem_bytes(int W) {
-  return (size_t)3 * (TM + 2 * (W + 2) + 2) * CC * 2 + (size_t)27 * CC * LDW * 2 +
-         (size_t)TN * LDC * 4;
-}
-
-__global__ void __launch_bounds__(THREADS) conv3d_cs_staged_kernel(Args p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int WP = p.W + 2;
-  const int NS = TM + 2 * WP + 2;  // padded-plane voxels one tile reads
-  __nv_bfloat16* x_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [3][NS][CC]
-  __nv_bfloat16* w_s = x_s + 3 * NS * CC;                         // [27][CC][LDW]
-  float* c_s = reinterpret_cast<float*>(w_s + 27 * CC * LDW);     // [TN][LDC]
-
-  const int n0 = blockIdx.x * TN;
-  const int d = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int cin = p.C1 + p.C2;
-  const int S = p.H * p.W;
-  const int V = p.H * WP;  // virtual outputs of the plane
-
-  float s1[NJ], s2[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) s1[j] = s2[j] = 0.f;
-
-  for (int v0 = 0; v0 < V; v0 += TM) {
-    AccFrag acc[TN / 16];
-#pragma unroll
-    for (int nf = 0; nf < TN / 16; ++nf) wmma::fill_fragment(acc[nf], 0.f);
-
-    for (int c0 = 0; c0 < cin; c0 += CC) {
-      // input span: voxel q of P holds 16 channels in 32 contiguous bytes
-      for (int i = tid; i < 3 * NS; i += THREADS) {
-        const int zz = i / NS;
-        const int q = v0 + i - zz * NS;
-        const int z = d + zz - 1;
-        const int y = q / WP - 1;
-        const int x = q % WP - 1;
-        uint32_t words[CC / 2];
-        if (z >= 0 && z < p.D && y >= 0 && y < p.H && x >= 0 && x < p.W) {
-          const __nv_bfloat16* src = channel_ptr(p, b, z, c0) + y * p.W + x;
-#pragma unroll
-          for (int j = 0; j < CC / 2; ++j) {
-            const __nv_bfloat16 lo =
-                prologue(p, b, c0 + 2 * j, src[(size_t)(2 * j) * S]);
-            const __nv_bfloat16 hi =
-                prologue(p, b, c0 + 2 * j + 1, src[(size_t)(2 * j + 1) * S]);
-            words[j] = (uint32_t)__bfloat16_as_ushort(lo) |
-                       ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < CC / 2; ++j) words[j] = 0u;
-        }
-        uint4* dst = reinterpret_cast<uint4*>(x_s + (size_t)i * CC);
-        dst[0] = make_uint4(words[0], words[1], words[2], words[3]);
-        dst[1] = make_uint4(words[4], words[5], words[6], words[7]);
-      }
-      // weights of the chunk: 27 taps x 16 channels x 32 output channels
-      for (int i = tid; i < 27 * CC * TN; i += THREADS) {
-        const int nn = i % TN;
-        const int kk = (i / TN) % CC;
-        const int t = i / (TN * CC);
-        const int n = n0 + nn;
-        w_s[(t * CC + kk) * LDW + nn] =
-            n < p.Cout ? p.w[((size_t)t * cin + c0 + kk) * p.Cout + n]
-                       : __float2bfloat16(0.f);
-      }
-      __syncthreads();
-#pragma unroll 3
-      for (int t = 0; t < 27; ++t) {
-        const int dz = t / 9;
-        const int dy = (t / 3) % 3;
-        const int dx = t % 3;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            af;
-        wmma::load_matrix_sync(
-            af, x_s + (dz * NS + warp * 16 + dy * WP + dx) * CC, CC);
-#pragma unroll
-        for (int nf = 0; nf < TN / 16; ++nf) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              bf;
-          wmma::load_matrix_sync(bf, w_s + t * CC * LDW + nf * 16, LDW);
-          wmma::mma_sync(acc[nf], af, bf, acc[nf]);
-        }
-      }
-      __syncthreads();
-    }
-    store_tile(p, acc, c_s, b, d, n0, v0, WP, s1, s2);
-  }
-  if (p.stats != nullptr) store_stats(p, c_s, b, d, n0, s1, s2);
-}
-
-template <int TMP, int WM, int NST, int MINB>
+template <int TMP>
 int launch_packed(const PackedArgs& p, cudaStream_t s) {
-  const size_t smem = (size_t)NST * packed_stage_elems(TMP, p.W) * 2;
-  cudaError_t err = cudaFuncSetAttribute(conv3d_cs_packed_kernel<TMP, WM, NST, MINB>,
+  const size_t smem = (size_t)STAGES * packed_stage_elems(TMP, p.W) * 2;
+  cudaError_t err = cudaFuncSetAttribute(conv3d_cs_packed_kernel<TMP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.Cout + TN - 1) / TN, p.D, p.B);
-  conv3d_cs_packed_kernel<TMP, WM, NST, MINB><<<grid, TMP / WM * 32, smem, s>>>(p);
+  conv3d_cs_packed_kernel<TMP><<<grid, TMP, smem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -804,22 +699,38 @@ extern "C" int conv3d_cs_packed_launch(const void* xp, const void* w,
   p.H = H;
   p.W = W;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tm) {
-    case 256: return launch_packed<256, 32, 3, 2>(p, s);
-    case 128: return launch_packed<128, 32, 3, 4>(p, s);
-    case 1: return launch_packed<256, 64, 3, 2>(p, s);
-    case 2: return launch_packed<256, 64, 2, 3>(p, s);
-    case 3: return launch_packed<128, 64, 3, 4>(p, s);
-    case 4: return launch_packed<512, 64, 3, 1>(p, s);
-    case 5: return launch_packed<256, 32, 4, 1>(p, s);
-    case 6: return launch_packed<256, 32, 2, 3>(p, s);
-  }
+  if (tm == 256) return launch_packed<256>(p, s);
+  if (tm == 128) return launch_packed<128>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The conv on (B, D, C, H*W) itself: w (27 * (C1 + C2), C_out) bf16; the
-// staged kernel when C1 and C2 are multiples of 16, else the gather kernel.
-extern "C" int conv3d_cs_launch(const void* x1, const void* x2,
+// Registers a thread and resident blocks an SM of the kernel that takes a
+// plane of width W: the packed kernel with tm rows (256 or 128), or the
+// gather kernel (tm 0), as the card reports them.
+extern "C" int conv3d_cs_resources(int tm, int W, int* regs, int* blocks_per_sm) {
+  const void* fn = reinterpret_cast<const void*>(conv3d_cs_gather_kernel);
+  int threads = THREADS;
+  size_t smem = 0;
+  if (tm == 256 || tm == 128) {
+    fn = tm == 256 ? reinterpret_cast<const void*>(conv3d_cs_packed_kernel<256>)
+                   : reinterpret_cast<const void*>(conv3d_cs_packed_kernel<128>);
+    threads = tm;
+    smem = (size_t)STAGES * packed_stage_elems(tm, W) * 2;
+    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, threads, smem));
+}
+
+// The gather conv on (B, D, C, H*W) itself, any C1 and C2: w (27 * (C1 + C2),
+// C_out) bf16.
+extern "C" int conv3d_cs_gather_launch(const void* x1, const void* x2,
                                 const void* pair_bias, const void* w,
                                 const void* bias, const void* aff_a,
                                 const void* aff_c, void* out, void* stats,
@@ -832,16 +743,6 @@ extern "C" int conv3d_cs_launch(const void* x1, const void* x2,
   p.stats = static_cast<float*>(stats);
   p.Cout = Cout;
   const dim3 grid((Cout + TN - 1) / TN, D, B);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (C1 % CC == 0 && C2 % CC == 0) {
-    const size_t smem = staged_smem_bytes(W);
-    cudaError_t err = cudaFuncSetAttribute(
-        conv3d_cs_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    conv3d_cs_staged_kernel<<<grid, THREADS, smem, s>>>(p);
-  } else {
-    conv3d_cs_gather_kernel<<<grid, THREADS, 0, s>>>(p);
-  }
+  conv3d_cs_gather_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

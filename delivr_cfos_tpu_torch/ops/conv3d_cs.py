@@ -51,9 +51,9 @@ def conv3d_cs_path(c1: int, c2: int) -> str:
 
 def packed_tile_rows(h: int, w: int) -> int:
     """Output rows per tile of the packed conv: 256 where the padded plane
-    has more than 512 virtual voxels (levels 0-1 of the production window),
-    else 128, which wastes less of a small plane's last tile."""
-    return 256 if h * (w + 2) > 512 else 128
+    has more than 128 virtual voxels (levels 0-2 of the production window),
+    else 128, which wastes less of a small plane's one tile."""
+    return 256 if h * (w + 2) > 128 else 128
 
 
 def conv3d_cs_pack_reference(x, *, h, w, x2=None, bias2=None, in_affine=None):
@@ -278,7 +278,7 @@ def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
     lib = _launcher()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.conv3d_cs_launch(
+        err = lib.conv3d_cs_gather_launch(
             _ptr(x), _ptr(x2), _ptr(pb), _ptr(w_k), _ptr(bias), _ptr(a),
             _ptr(c), _ptr(out), _ptr(stats),
             b_, n_d, c1, c2, cout, h, w, ctypes.c_void_p(stream),
@@ -292,35 +292,29 @@ def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
 conv3d_cs.launches = 0
 
 
-def _conv3d_cs_staged(x, w_k, *, h, w, cout, x2=None, bias2=None):
-    """The superseded staged kernel on (B, D, C, H·W), C1 and C2 multiples of
-    16, with stats: kept only so that chip_smoke.py times it beside the
-    packed path; counts no launch."""
-    b_, n_d, c1, s = x.shape
-    c2 = 0 if x2 is None else x2.shape[2]
-    pb = None if bias2 is None else bias2.to(torch.bfloat16).contiguous()
-    out, stats = _outputs(b_, n_d, cout, s, True, x.device)
-    with torch.cuda.device(x.device):
-        err = _launcher().conv3d_cs_launch(
-            _ptr(x), _ptr(x2), _ptr(pb), _ptr(w_k), _ptr(None), _ptr(None),
-            _ptr(None), _ptr(out), _ptr(stats), b_, n_d, c1, c2, cout, h, w,
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-        )
+def conv3d_cs_resources(c1: int, c2: int, h: int, w: int) -> tuple[int, int]:
+    """(registers a thread, resident blocks an SM) of the conv kernel a
+    CUDA call with these channels and plane takes, as the card reports them."""
+    tm = packed_tile_rows(h, w) if conv3d_cs_path(c1, c2) == "packed" else 0
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    err = _launcher().conv3d_cs_resources(tm, w, ctypes.byref(regs), ctypes.byref(blocks))
     if err != 0:
-        raise RuntimeError(f"conv3d_cs staged kernel launch failed: CUDA error {err}")
-    return out, stats
+        raise RuntimeError(f"conv3d_cs_resources failed: CUDA error {err}")
+    return regs.value, blocks.value
 
 
 def _launcher():
     lib = _build.load("conv3d_cs")
-    if lib.conv3d_cs_launch.argtypes is None:
-        lib.conv3d_cs_launch.argtypes = (
+    if lib.conv3d_cs_gather_launch.argtypes is None:
+        lib.conv3d_cs_gather_launch.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.conv3d_cs_pack_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.conv3d_cs_packed_launch.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        for fn in (lib.conv3d_cs_launch, lib.conv3d_cs_pack_launch,
-                   lib.conv3d_cs_packed_launch):
+        lib.conv3d_cs_resources.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
+        for fn in (lib.conv3d_cs_gather_launch, lib.conv3d_cs_pack_launch,
+                   lib.conv3d_cs_packed_launch, lib.conv3d_cs_resources):
             fn.restype = ctypes.c_int
     return lib

@@ -1,5 +1,8 @@
 """The port's conv3d_cs (plain version on the CPU) against the JAX package's
-Pallas conv3d_cs in interpret mode, on the same numpy inputs.
+Pallas conv3d_cs in interpret mode, on the same numpy inputs; the plain
+version of the pack step (conv3d_cs_pack_reference) against the prologue
+built the way the plain conv built it before, bit for bit, and a conv of its
+output against the JAX kernel.
 
 Tolerances: outputs within one bf16 ULP at their magnitude — both sides sum
 the same bf16 products in f32, in other orders, and round once, so a sum
@@ -246,8 +249,8 @@ def test_conv_of_the_packed_input_matches_jax(kind, h, w):
 def test_path_rule_and_block_weights():
     assert conv3d_cs_path(32, 0) == conv3d_cs_path(32, 32) == "packed"
     assert conv3d_cs_path(1, 0) == conv3d_cs_path(16, 8) == "gather"
-    # 256-row tiles on the level-0/1 planes, 128 on levels 2-4
-    assert [packed_tile_rows(96 >> i, 64 >> i) for i in range(5)] == [256, 256, 128, 128, 128]
+    # 256-row tiles on the level-0/1/2 planes, 128 on levels 3-4
+    assert [packed_tile_rows(96 >> i, 64 >> i) for i in range(5)] == [256, 256, 256, 128, 128]
     w = torch.arange(27 * 16 * 40, dtype=torch.float32).reshape(3, 3, 3, 16, 40)
     w_k = kernel_weights(w[..., :10, :], w[..., 10:, :])
     assert torch.equal(w_k, w.to(torch.bfloat16).reshape(27 * 16, 40))

@@ -12,11 +12,14 @@ import pytest
 import torch
 
 from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+    block_weights,
     conv3d_cs,
     conv3d_cs_pack,
     conv3d_cs_pack_reference,
+    conv3d_cs_packed,
     conv3d_cs_path,
     conv3d_cs_reference,
+    kernel_weights,
 )
 from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
     MAX_C,
@@ -95,11 +98,11 @@ def test_conv3d_cs_kernel_matches_plain_version(dev, b, d, h, w, cin, c2, cout,
 @pytest.mark.parametrize("b,d,h,w,c1,c2,cout", [
     # packed path, shapes that leave the ring's last tile ragged: one
     # partial tile (36 virtual rows of 128), a last tile of one row
-    # (3 x 43 = 129), the 256-row tiles with a last tile of 82 rows
+    # (1 x 257), the 256-row tiles with a last tile of 82 rows
     # (9 x 66 = 594), three channel chunks a tap plane (C_in = 48), C_out
     # cut into a full and a partial 32-wide block
     (2, 3, 6, 4, 16, 0, 32),
-    (1, 2, 3, 41, 32, 0, 16),
+    (1, 2, 1, 255, 32, 0, 16),
     (1, 3, 9, 64, 32, 16, 40),
     (2, 2, 5, 9, 48, 0, 72),
 ])
@@ -178,6 +181,13 @@ def test_conv3d_cs_rejects_what_the_kernel_does_not_take(dev):
         conv3d_cs(x, wt, None, h=4, w=4)
     with pytest.raises(ValueError):
         conv3d_cs(x.to(torch.bfloat16), wt, None, h=4, w=5)
+    # the packed conv reads past xp's end into storage conv3d_cs_pack adds
+    xb = torch.zeros(1, 2, 16, 16, dtype=torch.bfloat16, device=dev)
+    xp = conv3d_cs_pack(xb, h=4, w=4)
+    w_blk = block_weights(kernel_weights(torch.zeros(3, 3, 3, 16, 8, device=dev)))
+    conv3d_cs_packed(xp, w_blk, None, cout=8)
+    with pytest.raises(ValueError, match="past its end"):
+        conv3d_cs_packed(xp.clone(), w_blk, None, cout=8)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
