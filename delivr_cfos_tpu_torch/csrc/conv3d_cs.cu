@@ -52,7 +52,7 @@
 //   SM (the bound __launch_bounds__ asks for); at TM = 128 (planes of at
 //   most 128 virtual voxels, levels 3-4) 4 blocks of 128. Measured
 //   (conv3d_cs_variants.py in the history): 64-row warp tiles, a ring of 2
-//   or 4, or 512-row tiles move the level-0 convs by -5 % to +29 %, and
+//   or 4, or 512-row tiles move the level-0 convs by -10 % to +29 %, and
 //   256-row tiles beat 128 from the 24 x 16 plane of level 2 up.
 // - conv3d_cs_gather_kernel (any other C_in): per chunk of 32 K columns, which
 //   cross tap boundaries so K = 27 * C_in is not padded, the block gathers the
@@ -80,10 +80,10 @@ constexpr int TN = 32;        // output channels per block (GEMM columns)
 // gather path
 constexpr int TM = 128;       // output voxels per tile (GEMM rows)
 constexpr int THREADS = 256;  // 8 warps; warp w owns tile rows [16w, 16w + 16)
-constexpr int LDC = TM + 4;  // C col-major: C[m, n] at c_s[n * LDC + m]
+constexpr int LDC = TM + 4;   // C col-major: C[m, n] at c_s[n * LDC + m]
 constexpr int NJ = TN / 2;    // output channels per thread in the epilogue
 constexpr int TK = 32;        // K per shared-memory stage
-constexpr int LDA = TM + 8;  // A col-major: A[m, k] at a_s[k * LDA + m]
+constexpr int LDA = TM + 8;   // A col-major: A[m, k] at a_s[k * LDA + m]
 constexpr int LDB = TN + 8;   // B row-major: B[k, n] at b_s[k * LDB + n]
 // packed path
 constexpr int PCC = 16;       // input channels per stage

@@ -126,7 +126,7 @@ def _ptr(t):
 
 def _inputs(x, h, w, x2, bias2, in_affine):
     """Check the activations and prologue arguments of a CUDA call; returns
-    (x2, bias2 as bf16, a, c) ready for the kernels."""
+    (bias2 as bf16, a, c) ready for the kernels."""
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_cs runs on CUDA or the CPU, not {x.device}")
     if x2 is not None and in_affine is not None:
@@ -150,7 +150,7 @@ def _inputs(x, h, w, x2, bias2, in_affine):
         a, c = (t.to(torch.float32).contiguous() for t in in_affine)
         _check(a, "in_affine a", torch.float32, (b_, c1 + c2), dev)
         _check(c, "in_affine c", torch.float32, (b_, c1 + c2), dev)
-    return x2, pb, a, c
+    return pb, a, c
 
 
 def conv3d_cs_pack(x, *, h, w, x2=None, bias2=None, in_affine=None):
@@ -162,7 +162,7 @@ def conv3d_cs_pack(x, *, h, w, x2=None, bias2=None, in_affine=None):
     if x.device.type == "cpu":
         return conv3d_cs_pack_reference(x, h=h, w=w, x2=x2, bias2=bias2,
                                         in_affine=in_affine)
-    x2, pb, a, c = _inputs(x, h, w, x2, bias2, in_affine)
+    pb, a, c = _inputs(x, h, w, x2, bias2, in_affine)
     b_, n_d, c1, _ = x.shape
     c2 = 0 if x2 is None else x2.shape[2]
     if c1 % 8 or c2 % 8:
@@ -258,7 +258,7 @@ def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
             emit_stats=emit_stats, pair=pair,
         )
     x2, w2, bias2 = _split_pair(pair)
-    x2, pb, a, c = _inputs(x, h, w, x2, bias2, in_affine)
+    pb, a, c = _inputs(x, h, w, x2, bias2, in_affine)
     dev = x.device
     b_, n_d, c1, s = x.shape
     cout = weights.shape[-1]
