@@ -54,14 +54,36 @@
 //   (conv3d_cs_variants.py in the history): 64-row warp tiles, a ring of 2
 //   or 4, or 512-row tiles move the level-0 convs by -10 % to +29 %, and
 //   256-row tiles beat 128 from the 24 x 16 plane of level 2 up.
+// - conv3d_cs_direct_kernel (C_in = 1, W and C_out multiples of 8: the first
+//   conv, 1 -> 32 on the 96 x 64 plane; on the TPU the C_in = 1 case of the
+//   kernel above, padded to C_in = 2 and run by `_kernel_mp` at P = 8 planes):
+//   a direct stencil in f32 FMAs, no im2col and no tensor cores. Its bound is
+//   the output's bytes: 27 MACs a value (65.2 G MACs a forward batch of 128
+//   windows) take about 2 ms on the FP32 pipe, beside 1.49 ms to write the
+//   4.83 GB of bf16 output at 3.35 TB/s. A block stages its 27 x 32 weights
+//   once as f32 (3456 bytes) and input planes d - 1, d, d + 1 as f32 with
+//   the prologue applied and zeros around, in bands of rows: (rows + 2) x
+//   (W + 4) floats a plane, so 3 x 98 x 68 x 4 = 79968 bytes hold the whole
+//   96 x 64 plane in one band, 83424 with the weights (direct_band_rows in
+//   ops/conv3d_cs.py keeps a band under 100 KB). 127 registers, no spills,
+//   2 blocks of 256 threads an SM. Measured at the first conv (H100, 700 W):
+//   bands of 32 rows took the same time as the whole plane. A work unit is
+//   8 consecutive x voxels x 8 output channels, 64 accumulators: per (dz, dy)
+//   the thread reads its 10 input values once (two float4 and a float2) for
+//   the 3 dx taps, and each tap's 8 weights are a broadcast read. Warp w
+//   keeps channel group w & 3 for the whole plane; a quarter warp's lanes sit
+//   on 2 rows x 4 groups, so at W = 64 their float4 reads fall in distinct
+//   banks. The epilogue adds the bias in f32, rounds each channel's 8 voxels
+//   to bf16 once and writes them as one 16-byte store: a warp writes 512
+//   contiguous bytes of one channel plane, nothing through shared memory.
 // - conv3d_cs_gather_kernel (any other C_in): per chunk of 32 K columns, which
 //   cross tap boundaries so K = 27 * C_in is not padded, the block gathers the
 //   im2col tile straight from global memory and runs nvcuda::wmma.
 //
-// Both GEMM kernels run one block per (C_out tile of 32, z-plane d, batch b)
-// walking its whole H*W plane in a fixed order, so the plane's stats are
-// reduced inside the block in a fixed order: no atomics, no second pass, the
-// same bits on every run (a TPU grid runs in order, Hopper blocks do not).
+// The three conv kernels run one block per (C_out tile of 32, z-plane d,
+// batch b) walking its whole H*W plane in a fixed order, so the plane's stats
+// are reduced inside the block in a fixed order: no atomics, no second pass,
+// the same bits on every run (a TPU grid runs in order, Hopper blocks do not).
 //
 // Left for later: wgmma and TMA on xp, multi-plane tiles for the small planes
 // of levels 3-4, weights resident per block, wider N tiles.
@@ -94,6 +116,10 @@ constexpr int LDX = PCC + 8;  // span row: one voxel's 16 channels, padded
 constexpr int LDP = TN + 8;   // weight row: one K row's 32 output channels
 constexpr int W_STAGE = 9 * PCC * LDP;  // bf16 of one stage's weights
 constexpr int PACK_THREADS = 256;
+// direct path
+constexpr int DIRECT_THREADS = 256;  // 8 warps: warp w holds channel group w & 3
+constexpr int DV = 8;                // x voxels a work unit
+constexpr int DC = 8;                // output channels a work unit
 
 struct Args {
   const __nv_bfloat16* x1;
@@ -475,6 +501,167 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
 }
 
 // ---------------------------------------------------------------------------
+// direct conv, C_in = 1, on (B, D, 1, H*W)
+
+// Floats of shared memory: the weights [27][TN], then input planes
+// d - 1, d, d + 1 of a band, [3][rb + 2][W + 4], column c holding x = c - 1.
+__host__ __device__ constexpr int direct_smem_floats(int rb, int W) {
+  return 27 * TN + 3 * (rb + 2) * (W + 4);
+}
+
+__global__ void __launch_bounds__(DIRECT_THREADS, 2) conv3d_cs_direct_kernel(Args p, int rb) {
+  extern __shared__ __align__(16) float dsm[];
+  float* w_s = dsm;
+  float* in_s = dsm + 27 * TN;
+  const int WP = p.W + 4;  // a multiple of 4: every row starts 16-byte aligned
+  const int RP = rb + 2;
+  const int G = p.W / DV;  // voxel groups a row
+  const int S = p.H * p.W;
+  const int n0 = blockIdx.x * TN;
+  const int d = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int cg = warp & 3;
+  const bool active = n0 + cg * DC < p.Cout;
+  // the warp's 32 consecutive units: quarter warp q on rows 2 (q >> 1) + {0, 1}
+  // and groups 4 (q & 1) + {0..3} of a 64-wide plane
+  const int slot = (warp >> 2) * 32 + ((lane >> 4) << 4 | ((lane >> 2) & 1) << 3 |
+                                       ((lane >> 3) & 1) << 2 | (lane & 3));
+
+  for (int i = tid; i < 27 * TN; i += DIRECT_THREADS) {
+    const int k = i / TN;
+    const int n = n0 + i - k * TN;
+    w_s[i] = n < p.Cout ? __bfloat162float(p.w[(size_t)k * p.Cout + n]) : 0.f;
+  }
+  float s1[DC], s2[DC];
+#pragma unroll
+  for (int j = 0; j < DC; ++j) s1[j] = s2[j] = 0.f;
+
+  for (int r0 = 0; r0 < p.H; r0 += rb) {
+    const int rows = min(rb, p.H - r0);
+    __syncthreads();  // the last band's reads are done
+    // input rows r0 - 1 .. r0 + rows of planes d - 1 .. d + 1, four columns
+    // a thread, with the prologue; zeros outside the volume
+    const int Q = WP / 4;
+    for (int i = tid; i < 3 * (rows + 2) * Q; i += DIRECT_THREADS) {
+      const int q = i % Q;
+      const int zr = i / Q;
+      const int pz = zr / (rows + 2);
+      const int pr = zr - pz * (rows + 2);
+      const int z = d + pz - 1;
+      const int y = r0 + pr - 1;
+      const bool row_in = z >= 0 && z < p.D && y >= 0 && y < p.H;
+      const __nv_bfloat16* src = p.x1 + ((size_t)b * p.D + z) * S + (size_t)y * p.W;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * q + e - 1;
+        v[e] = row_in && x >= 0 && x < p.W ? __bfloat162float(prologue(p, b, 0, src[x])) : 0.f;
+      }
+      *reinterpret_cast<float4*>(in_s + (pz * RP + pr) * WP + 4 * q) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+    __syncthreads();
+    if (!active) continue;
+
+    for (int u = slot; u < rows * G; u += 2 * 32) {
+      // a compiler fence: without it the 27 taps' weight reads (216 floats)
+      // are hoisted out of this loop, and at the 128-register cap of 2
+      // blocks an SM they spill (1984 bytes a thread; 31 ms against 3.6)
+      asm volatile("" ::: "memory");
+      const int y = u / G;
+      const int x0 = (u - y * G) * DV;
+      float acc[DC][DV];
+#pragma unroll
+      for (int j = 0; j < DC; ++j) {
+#pragma unroll
+        for (int i = 0; i < DV; ++i) acc[j][i] = 0.f;
+      }
+#pragma unroll
+      for (int dz = 0; dz < 3; ++dz) {
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          // padded column x0 + k holds x = x0 + k - 1: voxel x0 + i, tap dx reads v[i + dx]
+          const float* row = in_s + (dz * RP + y + dy) * WP + x0;
+          const float4 a0 = *reinterpret_cast<const float4*>(row);
+          const float4 a1 = *reinterpret_cast<const float4*>(row + 4);
+          const float2 a2 = *reinterpret_cast<const float2*>(row + 8);
+          const float v[DV + 2] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w, a2.x, a2.y};
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const float* wt = w_s + ((dz * 3 + dy) * 3 + dx) * TN + cg * DC;
+            const float4 w0 = *reinterpret_cast<const float4*>(wt);
+            const float4 w1 = *reinterpret_cast<const float4*>(wt + 4);
+            const float wv[DC] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+            for (int j = 0; j < DC; ++j) {
+#pragma unroll
+              for (int i = 0; i < DV; ++i) acc[j][i] = fmaf(v[i + dx], wv[j], acc[j][i]);
+            }
+          }
+        }
+      }
+      // epilogue from registers: per channel, 8 voxels in one 16-byte store
+      const int m = (r0 + y) * p.W + x0;
+#pragma unroll
+      for (int j = 0; j < DC; ++j) {
+        const int n = n0 + cg * DC + j;
+        const float bn = p.bias != nullptr ? p.bias[n] : 0.f;
+        uint32_t h[DV / 2];
+#pragma unroll
+        for (int i = 0; i < DV; i += 2) {
+          float v0 = acc[j][i], v1 = acc[j][i + 1];
+          if (p.bias != nullptr) {
+            v0 += bn;
+            v1 += bn;
+          }
+          s1[j] += v0 + v1;
+          s2[j] += v0 * v0 + v1 * v1;
+          h[i / 2] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16(v0)) |
+                     ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(v1)) << 16);
+        }
+        *reinterpret_cast<uint4*>(p.out + (((size_t)b * p.D + d) * p.Cout + n) * S + m) =
+            make_uint4(h[0], h[1], h[2], h[3]);
+      }
+    }
+  }
+  if (p.stats == nullptr) return;
+
+  // stats: a fixed xor tree over the warp, then the channel group's two
+  // warps in order; the weights' buffer is free once every thread is here
+  __syncthreads();
+  float* red = w_s;  // [8 warps][2][DC]
+#pragma unroll
+  for (int j = 0; j < DC; ++j) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s1[j] += __shfl_xor_sync(0xffffffffu, s1[j], o);
+      s2[j] += __shfl_xor_sync(0xffffffffu, s2[j], o);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int j = 0; j < DC; ++j) {
+      red[warp * 2 * DC + j] = s1[j];
+      red[warp * 2 * DC + DC + j] = s2[j];
+    }
+  }
+  __syncthreads();
+  if (tid < 2 * TN) {
+    const int q = tid / TN;
+    const int col = tid - q * TN;
+    const int g = col / DC;
+    const int e = q * DC + col - g * DC;
+    if (n0 + col < p.Cout) {
+      p.stats[(((size_t)b * p.D + d) * 2 + q) * p.Cout + n0 + col] =
+          red[g * 2 * DC + e] + red[(g + 4) * 2 * DC + e];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // gather conv on (B, D, C, H*W)
 
 // Epilogue of one 128-voxel tile: accumulators → c_s → bf16 output (+ bias),
@@ -704,18 +891,49 @@ extern "C" int conv3d_cs_packed_launch(const void* xp, const void* w,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The direct conv, C_in = 1: x (B, D, 1, H*W) bf16, W and Cout multiples of
+// 8, w (27, Cout) bf16, aff_a and aff_c (B, 1) or null; a block stages rb
+// rows of output (their planes' rows and halo) at a time.
+extern "C" int conv3d_cs_direct_launch(const void* x, const void* w, const void* bias,
+                                       const void* aff_a, const void* aff_c, void* out,
+                                       void* stats, int B, int D, int Cout, int H, int W,
+                                       int rb, void* stream) {
+  if (W % DV != 0 || Cout % DC != 0 || rb < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Args p = make_args(x, nullptr, nullptr, aff_a, aff_c, B, D, 1, 0, H, W);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.stats = static_cast<float*>(stats);
+  p.Cout = Cout;
+  const size_t smem = (size_t)direct_smem_floats(rb, W) * 4;
+  cudaError_t err = cudaFuncSetAttribute(conv3d_cs_direct_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Cout + TN - 1) / TN, D, B);
+  conv3d_cs_direct_kernel<<<grid, DIRECT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p, rb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Registers a thread and resident blocks an SM of the kernel that takes a
-// plane of width W: the packed kernel with tm rows (256 or 128), or the
-// gather kernel (tm 0), as the card reports them.
-extern "C" int conv3d_cs_resources(int tm, int W, int* regs, int* blocks_per_sm) {
+// plane of width W: the packed kernel with tm rows (256 or 128), the direct
+// kernel with bands of rb rows (tm 1), or the gather kernel (tm 0), as the
+// card reports them.
+extern "C" int conv3d_cs_resources(int tm, int rb, int W, int* regs, int* blocks_per_sm) {
   const void* fn = reinterpret_cast<const void*>(conv3d_cs_gather_kernel);
   int threads = THREADS;
   size_t smem = 0;
-  if (tm == 256 || tm == 128) {
-    fn = tm == 256 ? reinterpret_cast<const void*>(conv3d_cs_packed_kernel<256>)
-                   : reinterpret_cast<const void*>(conv3d_cs_packed_kernel<128>);
-    threads = tm;
-    smem = (size_t)STAGES * packed_stage_elems(tm, W) * 2;
+  if (tm == 256 || tm == 128 || tm == 1) {
+    if (tm == 1) {
+      fn = reinterpret_cast<const void*>(conv3d_cs_direct_kernel);
+      threads = DIRECT_THREADS;
+      smem = (size_t)direct_smem_floats(rb, W) * 4;
+    } else {
+      fn = tm == 256 ? reinterpret_cast<const void*>(conv3d_cs_packed_kernel<256>)
+                     : reinterpret_cast<const void*>(conv3d_cs_packed_kernel<128>);
+      threads = tm;
+      smem = (size_t)STAGES * packed_stage_elems(tm, W) * 2;
+    }
     cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -11,12 +11,14 @@ rounding, (B, D, 2, C_out) f32; ``pair=(x2, w2[, bias2])`` convolves
 concat([x, bf16(x2 + bf16(bias2))]); ``in_affine=(a, c)`` applies
 bf16(mish(x·a + c)) to the input. Odd C_in is taken as is.
 
-Two paths on the card, by a fixed shape rule (``conv3d_cs_path``):
+Three paths on the card, by a fixed shape rule (``conv3d_cs_path``):
 ``packed`` where C1 and C2 are multiples of 16 — ``conv3d_cs_pack`` writes
 the conv's input once as xp (B, D+2, H+2, W+2, C_in), zero-padded, channels
 innermost, with the concat, pair bias and prologue applied, and the packed
-conv kernel reads it with 16-byte copies — and ``gather`` for any other
-C_in (the C_in = 1 first conv), which reads (B, D, C, H·W) itself.
+conv kernel reads it with 16-byte copies; ``direct`` for C_in = 1 with W
+and C_out multiples of 8 (the first conv), a stencil of f32 FMAs on input
+planes staged in shared memory; and ``gather`` for any other C_in, which
+gathers its im2col tiles from (B, D, C, H·W) itself.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ from delivr_cfos_tpu_torch.utils.device import full_f32
 
 TN = 32  # output channels per block of the packed conv
 TAIL = 256  # voxels of storage past xp's end: the largest tile the conv reads past it
+DIRECT_MAX_W = 2048  # widest plane the direct conv takes (bands of 2 rows)
+DIRECT_BAND_BYTES = 100 * 1024  # f32 input rows a direct block stages: 2 blocks an SM
 
 
 def _mish(v: torch.Tensor) -> torch.Tensor:
@@ -44,9 +48,22 @@ def _split_pair(pair):
     return x2, w2, (pair[2] if len(pair) > 2 else None)
 
 
-def conv3d_cs_path(c1: int, c2: int) -> str:
-    """The kernel path a CUDA call with C1 and C2 input channels takes."""
-    return "packed" if c1 % 16 == 0 and c2 % 16 == 0 else "gather"
+def conv3d_cs_path(c1: int, c2: int, w: int, cout: int) -> str:
+    """The kernel path a CUDA call with C1 and C2 input channels, planes W
+    wide and C_out output channels takes."""
+    if c1 % 16 == 0 and c2 % 16 == 0:
+        return "packed"
+    if c1 == 1 and c2 == 0 and w % 8 == 0 and w <= DIRECT_MAX_W and cout % 8 == 0:
+        return "direct"
+    return "gather"
+
+
+def direct_band_rows(h: int, w: int) -> int:
+    """Output rows a block of the direct conv stages at once: the whole
+    plane where its three f32 input planes with their halo fit in
+    ``DIRECT_BAND_BYTES`` (the 96×64 first-conv plane: 79,968 bytes), else
+    as many rows as fit."""
+    return min(h, DIRECT_BAND_BYTES // (3 * 4 * (w + 4)) - 2)
 
 
 def packed_tile_rows(h: int, w: int) -> int:
@@ -244,7 +261,61 @@ def conv3d_cs_packed(xp, w_blk, bias, *, cout, emit_stats=False):
     if err != 0:
         raise RuntimeError(f"conv3d_cs kernel launch failed: CUDA error {err}")
     conv3d_cs.launches += 1
+    conv3d_cs_packed.launches += 1
     return (out, stats) if emit_stats else out
+
+
+conv3d_cs_packed.launches = 0
+
+
+def _checked(x, weights, bias, h, w, in_affine, pair):
+    """Check a CUDA call's arguments; returns (x2, w2, bias2 as given, bias2
+    as bf16, a, c)."""
+    x2, w2, bias2 = _split_pair(pair)
+    pb, a, c = _inputs(x, h, w, x2, bias2, in_affine)
+    dev = x.device
+    c1, cout = x.shape[2], weights.shape[-1]
+    _check(weights, "weights", None, (3, 3, 3, c1, cout), dev)
+    if x2 is not None:
+        _check(w2, "w2", None, (3, 3, 3, x2.shape[2], cout), dev)
+    if bias is not None:
+        _check(bias, "bias", torch.float32, (cout,), dev)
+    return x2, w2, bias2, pb, a, c
+
+
+def _launch(fn, x, args, ints, emit_stats, cout):
+    """Allocate the outputs of a conv kernel on (B, D, C, H·W), launch it
+    with ``args`` (pointers, before the outputs) and ``ints`` (after them)
+    on the current stream, and count the launch."""
+    b_, n_d, _, s = x.shape
+    out, stats = _outputs(b_, n_d, cout, s, emit_stats, x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(*map(_ptr, args), _ptr(out), _ptr(stats), *ints, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"conv3d_cs kernel launch failed: CUDA error {err}")
+    conv3d_cs.launches += 1
+    return (out, stats) if emit_stats else out
+
+
+def _gather(x, x2, pb, w_k, bias, a, c, h, w, emit_stats):
+    b_, n_d, c1, _ = x.shape
+    c2 = 0 if x2 is None else x2.shape[2]
+    cout = w_k.shape[1]
+    res = _launch(_launcher().conv3d_cs_gather_launch, x,
+                  (x, x2, pb, w_k, bias, a, c), (b_, n_d, c1, c2, cout, h, w),
+                  emit_stats, cout)
+    conv3d_cs_gather.launches += 1
+    return res
+
+
+def _direct(x, w_k, bias, a, c, h, w, emit_stats):
+    b_, n_d, _, _ = x.shape
+    cout = w_k.shape[1]
+    res = _launch(_launcher().conv3d_cs_direct_launch, x, (x, w_k, bias, a, c),
+                  (b_, n_d, cout, h, w, direct_band_rows(h, w)), emit_stats, cout)
+    conv3d_cs_direct.launches += 1
+    return res
 
 
 def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
@@ -257,47 +328,63 @@ def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
             x, weights, bias, h=h, w=w, in_affine=in_affine,
             emit_stats=emit_stats, pair=pair,
         )
-    x2, w2, bias2 = _split_pair(pair)
-    pb, a, c = _inputs(x, h, w, x2, bias2, in_affine)
-    dev = x.device
-    b_, n_d, c1, s = x.shape
-    cout = weights.shape[-1]
+    x2, w2, bias2, pb, a, c = _checked(x, weights, bias, h, w, in_affine, pair)
     c2 = 0 if x2 is None else x2.shape[2]
-    _check(weights, "weights", None, (3, 3, 3, c1, cout), dev)
-    if x2 is not None:
-        _check(w2, "w2", None, (3, 3, 3, c2, cout), dev)
+    cout = weights.shape[-1]
+    path = conv3d_cs_path(x.shape[2], c2, w, cout)
     w_k = kernel_weights(weights, w2)
-    if bias is not None:
-        _check(bias, "bias", torch.float32, (cout,), dev)
-    if conv3d_cs_path(c1, c2) == "packed":
+    if path == "packed":
         # xp is freed on return: the allocator orders its reuse on the stream
         xp = conv3d_cs_pack(x, h=h, w=w, x2=x2, bias2=bias2, in_affine=in_affine)
         return conv3d_cs_packed(xp, block_weights(w_k), bias, cout=cout,
                                 emit_stats=emit_stats)
-    out, stats = _outputs(b_, n_d, cout, s, emit_stats, dev)
-    lib = _launcher()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.conv3d_cs_gather_launch(
-            _ptr(x), _ptr(x2), _ptr(pb), _ptr(w_k), _ptr(bias), _ptr(a),
-            _ptr(c), _ptr(out), _ptr(stats),
-            b_, n_d, c1, c2, cout, h, w, ctypes.c_void_p(stream),
+    if path == "direct":
+        return _direct(x, w_k, bias, a, c, h, w, emit_stats)
+    return _gather(x, x2, pb, w_k, bias, a, c, h, w, emit_stats)
+
+
+def conv3d_cs_gather(x, weights, bias, *, h, w, in_affine=None,
+                     emit_stats=False, pair=None):
+    """``conv3d_cs`` on the gather kernel whatever the shape (the plain
+    version on a CPU tensor): the path of the shapes the other two kernels
+    do not take, and a yardstick for the direct kernel at the first conv."""
+    if x.device.type == "cpu":
+        return conv3d_cs_reference(
+            x, weights, bias, h=h, w=w, in_affine=in_affine,
+            emit_stats=emit_stats, pair=pair,
         )
-    if err != 0:
-        raise RuntimeError(f"conv3d_cs kernel launch failed: CUDA error {err}")
-    conv3d_cs.launches += 1
-    return (out, stats) if emit_stats else out
+    x2, w2, _, pb, a, c = _checked(x, weights, bias, h, w, in_affine, pair)
+    return _gather(x, x2, pb, kernel_weights(weights, w2), bias, a, c, h, w,
+                   emit_stats)
 
 
+def conv3d_cs_direct(x, weights, bias, *, h, w, in_affine=None,
+                     emit_stats=False):
+    """``conv3d_cs`` on the direct kernel (the plain version on a CPU
+    tensor); raises unless C_in = 1 and W and C_out are multiples of 8."""
+    if x.device.type == "cpu":
+        return conv3d_cs_reference(x, weights, bias, h=h, w=w, in_affine=in_affine,
+                                   emit_stats=emit_stats)
+    _, _, _, _, a, c = _checked(x, weights, bias, h, w, in_affine, None)
+    if conv3d_cs_path(x.shape[2], 0, w, weights.shape[-1]) != "direct":
+        raise ValueError("the direct conv takes C_in = 1 and W, C_out multiples of 8, "
+                         f"got C_in {x.shape[2]}, W {w}, C_out {weights.shape[-1]}")
+    return _direct(x, kernel_weights(weights), bias, a, c, h, w, emit_stats)
+
+
+# launches of all conv kernels (18 a forward), and of each kernel alone
 conv3d_cs.launches = 0
+conv3d_cs_gather.launches = 0
+conv3d_cs_direct.launches = 0
 
 
-def conv3d_cs_resources(c1: int, c2: int, h: int, w: int) -> tuple[int, int]:
-    """(registers a thread, resident blocks an SM) of the conv kernel a
-    CUDA call with these channels and plane takes, as the card reports them."""
-    tm = packed_tile_rows(h, w) if conv3d_cs_path(c1, c2) == "packed" else 0
+def conv3d_cs_resources(path: str, h: int, w: int) -> tuple[int, int]:
+    """(registers a thread, resident blocks an SM) of the conv kernel of
+    ``path`` (``conv3d_cs_path``) on an H×W plane, as the card reports them."""
+    tm = {"packed": packed_tile_rows(h, w), "direct": 1, "gather": 0}[path]
     regs, blocks = ctypes.c_int(), ctypes.c_int()
-    err = _launcher().conv3d_cs_resources(tm, w, ctypes.byref(regs), ctypes.byref(blocks))
+    err = _launcher().conv3d_cs_resources(tm, direct_band_rows(h, w), w,
+                                          ctypes.byref(regs), ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"conv3d_cs_resources failed: CUDA error {err}")
     return regs.value, blocks.value
@@ -308,13 +395,16 @@ def _launcher():
     if lib.conv3d_cs_gather_launch.argtypes is None:
         lib.conv3d_cs_gather_launch.argtypes = (
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.conv3d_cs_direct_launch.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.conv3d_cs_pack_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.conv3d_cs_packed_launch.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.conv3d_cs_resources.argtypes = (
-            [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
-        for fn in (lib.conv3d_cs_gather_launch, lib.conv3d_cs_pack_launch,
-                   lib.conv3d_cs_packed_launch, lib.conv3d_cs_resources):
+            [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
+        for fn in (lib.conv3d_cs_gather_launch, lib.conv3d_cs_direct_launch,
+                   lib.conv3d_cs_pack_launch, lib.conv3d_cs_packed_launch,
+                   lib.conv3d_cs_resources):
             fn.restype = ctypes.c_int
     return lib

@@ -17,12 +17,16 @@ import torch
 
 from delivr_cfos_tpu.ops.pallas.conv3d_cs import conv3d_cs as jax_conv3d_cs
 from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+    DIRECT_BAND_BYTES,
     block_weights,
     conv3d_cs,
+    conv3d_cs_direct,
+    conv3d_cs_gather,
     conv3d_cs_pack,
     conv3d_cs_pack_reference,
     conv3d_cs_path,
     conv3d_cs_reference,
+    direct_band_rows,
     kernel_weights,
     packed_tile_rows,
 )
@@ -247,8 +251,8 @@ def test_conv_of_the_packed_input_matches_jax(kind, h, w):
 
 
 def test_path_rule_and_block_weights():
-    assert conv3d_cs_path(32, 0) == conv3d_cs_path(32, 32) == "packed"
-    assert conv3d_cs_path(1, 0) == conv3d_cs_path(16, 8) == "gather"
+    assert conv3d_cs_path(32, 0, 64, 32) == conv3d_cs_path(32, 32, 64, 32) == "packed"
+    assert conv3d_cs_path(1, 0, 64, 4) == conv3d_cs_path(16, 8, 64, 32) == "gather"
     # 256-row tiles on the level-0/1/2 planes, 128 on levels 3-4
     assert [packed_tile_rows(96 >> i, 64 >> i) for i in range(5)] == [256, 256, 256, 128, 128]
     w = torch.arange(27 * 16 * 40, dtype=torch.float32).reshape(3, 3, 3, 16, 40)
@@ -258,3 +262,71 @@ def test_path_rule_and_block_weights():
     assert blk.shape == (2, 27 * 16, 32)
     assert torch.equal(blk[0], w_k[:, :32]) and torch.equal(blk[1, :, :8], w_k[:, 32:])
     assert not blk[1, :, 8:].any()
+
+
+@pytest.mark.parametrize("c1,c2,w,cout,path", [
+    (1, 0, 64, 32, "direct"),  # the first conv, 1 -> 32 on the 96 x 64 plane
+    (1, 0, 7, 32, "gather"),  # W not a multiple of 8
+    (1, 0, 64, 4, "gather"),  # C_out not a multiple of 8
+    (3, 0, 64, 32, "gather"),  # C_in neither 1 nor a multiple of 16
+    (1, 0, 4096, 32, "gather"),  # wider than the direct conv's bands take
+    (1, 8, 64, 32, "gather"),  # pair mode never takes the direct conv
+    (16, 16, 7, 4, "packed"),
+])
+def test_conv3d_cs_path_rule(c1, c2, w, cout, path):
+    assert conv3d_cs_path(c1, c2, w, cout) == path
+
+
+def test_direct_band_rows_fit_the_band_bytes():
+    # the whole plane at the first conv's 96 x 64 and at small planes
+    assert direct_band_rows(96, 64) == 96
+    assert direct_band_rows(3, 16) == 3
+    for h, w in ((96, 64), (4000, 512), (50, 2048)):
+        rb = direct_band_rows(h, w)
+        assert 1 <= rb <= h
+        assert 3 * 4 * (rb + 2) * (w + 4) <= DIRECT_BAND_BYTES
+
+
+@pytest.mark.parametrize("b,d,h,w,cout,extra", [
+    (2, 5, 6, 8, 8, None),
+    (1, 1, 3, 16, 32, None),  # D = 1: both neighbour planes are zero
+    (2, 4, 12, 8, 32, "in_affine"),
+    (3, 3, 7, 24, 40, "bias"),  # two channel tiles, the second ragged
+])
+def test_first_conv_plain_version_matches_jax_padded(b, d, h, w, cout, extra):
+    """At the direct kernel's shapes (C_in = 1): the plain version against
+    the JAX kernel in interpret mode, with input and weights padded to C_in
+    = 2 as the JAX model pads them (the pad channel's prologue a = 1, c = 0
+    gives mish(0) = 0, and its weights are zero). One bf16 ULP; stats rtol
+    1e-3. The three wrappers on a CPU tensor are that plain version and
+    count no launch."""
+    rng = np.random.default_rng(b * 1000 + d * 100 + h * 10 + w + cout)
+    x = rng.standard_normal((b, d, 1, h * w)).astype(np.float32)
+    wt = (rng.standard_normal((3, 3, 3, 1, cout)) * 0.2).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32) if extra == "bias" else None
+    aff = None
+    if extra == "in_affine":
+        aff = (rng.uniform(0.5, 1.5, (b, 1)).astype(np.float32),
+               rng.normal(0, 0.3, (b, 1)).astype(np.float32))
+    assert conv3d_cs_path(1, 0, w, cout) == "direct"
+    jkw = {}
+    if aff is not None:
+        jkw["in_affine"] = (jnp.asarray(np.concatenate([aff[0], np.ones((b, 1), np.float32)], 1)),
+                            jnp.asarray(np.concatenate([aff[1], np.zeros((b, 1), np.float32)], 1)))
+    want, st_want = jax_conv3d_cs(
+        jnp.asarray(np.concatenate([x, np.zeros_like(x)], axis=2)),
+        jnp.asarray(np.concatenate([wt, np.zeros_like(wt)], axis=3)),
+        None if bias is None else jnp.asarray(bias),
+        h=h, w=w, interpret=True, emit_stats=True, **jkw)
+    kw = dict(h=h, w=w, emit_stats=True,
+              in_affine=None if aff is None else (_t(aff[0]), _t(aff[1])))
+    tb = None if bias is None else _t(bias)
+    before = (conv3d_cs.launches, conv3d_cs_direct.launches, conv3d_cs_gather.launches)
+    got, st = conv3d_cs(_bf16(x), _t(wt), tb, **kw)
+    assert got.shape == (b, d, cout, h * w) and st.shape == (b, d, 2, cout)
+    assert_within_one_ulp(_np(got), want)
+    assert_stats_close(st.numpy(), st_want)
+    for fn in (conv3d_cs_direct, conv3d_cs_gather):
+        again, st_again = fn(_bf16(x), _t(wt), tb, **kw)
+        assert torch.equal(again, got) and torch.equal(st_again, st)
+    assert (conv3d_cs.launches, conv3d_cs_direct.launches, conv3d_cs_gather.launches) == before

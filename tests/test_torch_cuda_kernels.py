@@ -14,6 +14,8 @@ import torch
 from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     block_weights,
     conv3d_cs,
+    conv3d_cs_direct,
+    conv3d_cs_gather,
     conv3d_cs_pack,
     conv3d_cs_pack_reference,
     conv3d_cs_packed,
@@ -83,6 +85,9 @@ def test_conv3d_cs_kernel_matches_plain_version(dev, b, d, h, w, cin, c2, cout,
                       rnd(3, 3, 3, c2, cout, scale=0.2), rnd(c2))
     if affine:
         kw["in_affine"] = (rnd(b, cin).abs() + 0.5, rnd(b, cin, scale=0.3))
+    # C_in = 1 with C_out = 4 stays on the gather kernel
+    packed = cin % 16 == 0 and c2 % 16 == 0
+    assert conv3d_cs_path(cin, c2, w, cout) == ("packed" if packed else "gather")
     before = conv3d_cs.launches
     got, st = conv3d_cs(x, wt, bias, h=h, w=w, emit_stats=True, **kw)
     torch.cuda.synchronize()
@@ -115,7 +120,7 @@ def test_conv3d_cs_packed_ring_with_ragged_tiles(dev, b, d, h, w, c1, c2, cout):
         kw["pair"] = (torch.randn((b, d, c2, h * w), generator=g).to(dev, torch.bfloat16),
                       (torch.randn((3, 3, 3, c2, cout), generator=g) * 0.2).to(dev),
                       torch.randn((c2,), generator=g).to(dev))
-    assert conv3d_cs_path(c1, c2) == "packed"
+    assert conv3d_cs_path(c1, c2, w, cout) == "packed"
     before = conv3d_cs.launches, conv3d_cs_pack.launches
     got, st = conv3d_cs(x, wt, None, h=h, w=w, emit_stats=True, **kw)
     torch.cuda.synchronize()
@@ -188,6 +193,51 @@ def test_conv3d_cs_rejects_what_the_kernel_does_not_take(dev):
     conv3d_cs_packed(xp, w_blk, None, cout=8)
     with pytest.raises(ValueError, match="past its end"):
         conv3d_cs_packed(xp.clone(), w_blk, None, cout=8)
+    # the direct conv takes C_in = 1 with W and C_out multiples of 8 only
+    x1 = torch.zeros(1, 2, 1, 16, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="direct conv"):
+        conv3d_cs_direct(x1, torch.zeros(3, 3, 3, 1, 4, device=dev), None, h=4, w=4)
+
+
+@pytest.mark.parametrize("b,d,h,w,cout,extra", [
+    (2, 5, 6, 8, 8, None),
+    (1, 1, 3, 16, 32, None),  # D = 1: both neighbour planes are zero
+    (2, 4, 12, 8, 32, "in_affine"),
+    (3, 3, 7, 24, 40, "bias"),  # two channel tiles, the second ragged
+])
+def test_conv3d_cs_direct_kernel_matches_plain_version(dev, b, d, h, w, cout, extra):
+    """The C_in = 1 first conv's kernel: within one bf16 ULP at max(|value|,
+    rms) (f32 FMAs of exact bf16 products, summed in another order), stats
+    rtol 1e-3, the same bits on a second launch; the gather kernel on the
+    same inputs within the same bound."""
+    g = torch.Generator().manual_seed(b * 1000 + d * 100 + h * 10 + w + cout)
+    x = torch.randn((b, d, 1, h * w), generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn((3, 3, 3, 1, cout), generator=g) * 0.2).to(dev)
+    bias = torch.randn((cout,), generator=g).to(dev) if extra == "bias" else None
+    aff = None
+    if extra == "in_affine":
+        aff = ((torch.rand((b, 1), generator=g) + 0.5).to(dev),
+               (torch.randn((b, 1), generator=g) * 0.3).to(dev))
+    assert conv3d_cs_path(1, 0, w, cout) == "direct"
+    before = conv3d_cs.launches, conv3d_cs_direct.launches, conv3d_cs_gather.launches
+    got, st = conv3d_cs(x, wt, bias, h=h, w=w, emit_stats=True, in_affine=aff)
+    torch.cuda.synchronize()
+    assert (conv3d_cs.launches, conv3d_cs_direct.launches, conv3d_cs_gather.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want, st_want = conv3d_cs_reference(x, wt, bias, h=h, w=w, emit_stats=True, in_affine=aff)
+    assert _ulps(got, want) <= 1.0
+    torch.testing.assert_close(
+        st, st_want, rtol=1e-3, atol=1e-3 * float(st_want.abs().max())
+    )
+    again = conv3d_cs(x, wt, bias, h=h, w=w, emit_stats=True, in_affine=aff)
+    assert torch.equal(again[0], got) and torch.equal(again[1], st)
+    gathered, st_g = conv3d_cs_gather(x, wt, bias, h=h, w=w, emit_stats=True, in_affine=aff)
+    torch.cuda.synchronize()
+    assert conv3d_cs_gather.launches == before[2] + 1
+    assert _ulps(gathered, want) <= 1.0
+    torch.testing.assert_close(
+        st_g, st_want, rtol=1e-3, atol=1e-3 * float(st_want.abs().max())
+    )
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
