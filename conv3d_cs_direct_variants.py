@@ -5,10 +5,12 @@ B = 128 windows, D = 96 planes of 96 × 64, C_in = 1, C_out = 32, with stats.
 
     python3 conv3d_cs_direct_variants.py
 
-Each variant is the source with one text change, built with nvcc (ptxas's
-registers and spills printed), checked against the plain version on 8
-windows (bf16 ULPs, stats ratio) and timed with CUDA events at band heights
-of 96 (the whole plane), 32 and 16 rows, twice in turns.
+Each variant is the source with a text change or two, built with nvcc
+(ptxas's registers and spills printed), checked against the plain version on
+8 windows (bf16 ULPs, stats ratio) and timed with CUDA events at band heights
+of 96 (the whole plane), 32 and 16 rows, twice in turns: without the
+compiler fence in the unit loop, one voxel a load in the staging, the first
+version's four-column staging, and blocks of 128 threads.
 """
 
 import ctypes
@@ -26,10 +28,37 @@ from delivr_cfos_tpu_torch.ops import conv3d_cs as m  # noqa: E402
 
 FENCE = '      asm volatile("" ::: "memory");\n'
 DZ = "#pragma unroll\n      for (int dz = 0; dz < 3; ++dz) {"
+VEC = "const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;"
+STAGING = ("    // input rows r0 - 1 .. r0 + rows of planes d - 1 .. d + 1 with the\n",
+           "    __syncthreads();\n    if (!active) continue;\n")
+# the first version's staging: four padded columns a thread, each voxel
+# loaded alone with its own bounds check
+FOUR_COLUMNS = """    const int Q = WP / 4;
+    for (int i = tid; i < 3 * (rows + 2) * Q; i += DIRECT_THREADS) {
+      const int q = i % Q;
+      const int zr = i / Q;
+      const int pz = zr / (rows + 2);
+      const int pr = zr - pz * (rows + 2);
+      const int z = d + pz - 1;
+      const int y = r0 + pr - 1;
+      const bool row_in = z >= 0 && z < p.D && y >= 0 && y < p.H;
+      const __nv_bfloat16* src = p.x1 + ((size_t)b * p.D + z) * S + (size_t)y * p.W;
+      float v[4];
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * q + e - 1;
+        v[e] = row_in && x >= 0 && x < p.W ? __bfloat162float(prologue(p, b, 0, src[x])) : 0.f;
+      }
+      *reinterpret_cast<float4*>(in_s + (pz * RP + pr) * WP + 4 * q) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+"""
 VARIANTS = {
     "shipped": [],
     "no_fence": [(FENCE, "")],  # the weight reads hoisted out of the unit loop
     "no_fence_dz_rolled": [(FENCE, ""), (DZ, DZ.replace("unroll", "unroll 1"))],
+    "scalar_loads": [(VEC, "const int vec = 0;")],
+    "four_column_staging": [STAGING],
+    "threads_128": [("constexpr int DIRECT_THREADS = 256;", "constexpr int DIRECT_THREADS = 128;")],
 }
 OUT = os.path.join("build", "direct_variants")
 
@@ -42,7 +71,11 @@ def build():
         s = src
         for a, b in subs:
             assert a in s, (name, a)
-            s = s.replace(a, b)
+            if a is STAGING[0]:  # the block from a up to b
+                i, j = s.index(a), s.index(b, s.index(a))
+                s = s[:i] + FOUR_COLUMNS + s[j:]
+            else:
+                s = s.replace(a, b)
         path = os.path.join(OUT, f"{name}.cu")
         with open(path, "w") as f:
             f.write(s)

@@ -509,7 +509,9 @@ __host__ __device__ constexpr int direct_smem_floats(int rb, int W) {
   return 27 * TN + 3 * (rb + 2) * (W + 4);
 }
 
-__global__ void __launch_bounds__(DIRECT_THREADS, 2) conv3d_cs_direct_kernel(Args p, int rb) {
+__global__ void __launch_bounds__(DIRECT_THREADS, 512 / DIRECT_THREADS)
+    conv3d_cs_direct_kernel(Args p, int rb, int vec) {
+  constexpr int STRIDE = DIRECT_THREADS / 4;  // units a channel group takes at once
   extern __shared__ __align__(16) float dsm[];
   float* w_s = dsm;
   float* in_s = dsm + 27 * TN;
@@ -542,31 +544,42 @@ __global__ void __launch_bounds__(DIRECT_THREADS, 2) conv3d_cs_direct_kernel(Arg
   for (int r0 = 0; r0 < p.H; r0 += rb) {
     const int rows = min(rb, p.H - r0);
     __syncthreads();  // the last band's reads are done
-    // input rows r0 - 1 .. r0 + rows of planes d - 1 .. d + 1, four columns
-    // a thread, with the prologue; zeros outside the volume
-    const int Q = WP / 4;
-    for (int i = tid; i < 3 * (rows + 2) * Q; i += DIRECT_THREADS) {
-      const int q = i % Q;
-      const int zr = i / Q;
+    // input rows r0 - 1 .. r0 + rows of planes d - 1 .. d + 1 with the
+    // prologue, 8 columns a thread (one 16-byte load where x is aligned);
+    // zeros outside the volume
+    for (int i = tid; i < 3 * (rows + 2) * G; i += DIRECT_THREADS) {
+      const int j = i % G;
+      const int zr = i / G;
       const int pz = zr / (rows + 2);
       const int pr = zr - pz * (rows + 2);
       const int z = d + pz - 1;
       const int y = r0 + pr - 1;
-      const bool row_in = z >= 0 && z < p.D && y >= 0 && y < p.H;
-      const __nv_bfloat16* src = p.x1 + ((size_t)b * p.D + z) * S + (size_t)y * p.W;
-      float v[4];
+      float* dst = in_s + (pz * RP + pr) * WP + DV * j;  // column DV j + 1 holds x = DV j
+      float v[DV];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int x = 4 * q + e - 1;
-        v[e] = row_in && x >= 0 && x < p.W ? __bfloat162float(prologue(p, b, 0, src[x])) : 0.f;
+      for (int t = 0; t < DV; ++t) v[t] = 0.f;
+      if (z >= 0 && z < p.D && y >= 0 && y < p.H) {
+        const __nv_bfloat16* src = p.x1 + ((size_t)b * p.D + z) * S + (size_t)y * p.W + DV * j;
+        uint4 q;
+        __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(&q);
+        if (vec) {
+          q = *reinterpret_cast<const uint4*>(src);
+        } else {
+#pragma unroll
+          for (int t = 0; t < DV; ++t) h[t] = src[t];
+        }
+#pragma unroll
+        for (int t = 0; t < DV; ++t) v[t] = __bfloat162float(prologue(p, b, 0, h[t]));
       }
-      *reinterpret_cast<float4*>(in_s + (pz * RP + pr) * WP + 4 * q) =
-          make_float4(v[0], v[1], v[2], v[3]);
+#pragma unroll
+      for (int t = 0; t < DV; ++t) dst[1 + t] = v[t];
+      if (j == 0) dst[0] = 0.f;           // x = -1
+      if (j == G - 1) dst[DV + 1] = 0.f;  // x = W
     }
     __syncthreads();
     if (!active) continue;
 
-    for (int u = slot; u < rows * G; u += 2 * 32) {
+    for (int u = slot; u < rows * G; u += STRIDE) {
       // a compiler fence: without it the 27 taps' weight reads (216 floats)
       // are hoisted out of this loop, and at the 128-register cap of 2
       // blocks an SM they spill (1984 bytes a thread; 31 ms against 3.6)
@@ -629,10 +642,10 @@ __global__ void __launch_bounds__(DIRECT_THREADS, 2) conv3d_cs_direct_kernel(Arg
   }
   if (p.stats == nullptr) return;
 
-  // stats: a fixed xor tree over the warp, then the channel group's two
-  // warps in order; the weights' buffer is free once every thread is here
+  // stats: a fixed xor tree over the warp, then the channel group's warps
+  // in order; the weights' buffer is free once every thread is here
   __syncthreads();
-  float* red = w_s;  // [8 warps][2][DC]
+  float* red = w_s;  // [warps][2][DC]
 #pragma unroll
   for (int j = 0; j < DC; ++j) {
 #pragma unroll
@@ -655,8 +668,9 @@ __global__ void __launch_bounds__(DIRECT_THREADS, 2) conv3d_cs_direct_kernel(Arg
     const int g = col / DC;
     const int e = q * DC + col - g * DC;
     if (n0 + col < p.Cout) {
-      p.stats[(((size_t)b * p.D + d) * 2 + q) * p.Cout + n0 + col] =
-          red[g * 2 * DC + e] + red[(g + 4) * 2 * DC + e];
+      float s = 0.f;
+      for (int k = g; k < DIRECT_THREADS / 32; k += 4) s += red[k * 2 * DC + e];
+      p.stats[(((size_t)b * p.D + d) * 2 + q) * p.Cout + n0 + col] = s;
     }
   }
 }
@@ -893,7 +907,8 @@ extern "C" int conv3d_cs_packed_launch(const void* xp, const void* w,
 
 // The direct conv, C_in = 1: x (B, D, 1, H*W) bf16, W and Cout multiples of
 // 8, w (27, Cout) bf16, aff_a and aff_c (B, 1) or null; a block stages rb
-// rows of output (their planes' rows and halo) at a time.
+// rows of output (their planes' rows and halo) at a time, with 16-byte
+// loads where x is 16-byte aligned, else one voxel a load.
 extern "C" int conv3d_cs_direct_launch(const void* x, const void* w, const void* bias,
                                        const void* aff_a, const void* aff_c, void* out,
                                        void* stats, int B, int D, int Cout, int H, int W,
@@ -911,7 +926,9 @@ extern "C" int conv3d_cs_direct_launch(const void* x, const void* w, const void*
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Cout + TN - 1) / TN, D, B);
-  conv3d_cs_direct_kernel<<<grid, DIRECT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p, rb);
+  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  conv3d_cs_direct_kernel<<<grid, DIRECT_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, rb, vec);
   return static_cast<int>(cudaGetLastError());
 }
 

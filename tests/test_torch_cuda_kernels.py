@@ -179,6 +179,23 @@ def test_conv3d_cs_pack_on_a_misaligned_view(dev):
         conv3d_cs_pack(x[:, :, :12].contiguous(), h=4, w=8)
 
 
+def test_conv3d_cs_direct_on_a_misaligned_view(dev):
+    """A contiguous C_in = 1 input that starts off a 16-byte boundary is
+    staged one voxel a load and gives the plain version's values."""
+    base = torch.randn(1 + 2 * 3 * 6 * 16, device=dev).to(torch.bfloat16)
+    x = base[1:].reshape(2, 3, 1, 6 * 16)
+    wt = torch.randn((3, 3, 3, 1, 16), device=dev) * 0.2
+    assert conv3d_cs_path(1, 0, 16, 16) == "direct"
+    before = conv3d_cs_direct.launches
+    got, st = conv3d_cs(x, wt, None, h=6, w=16, emit_stats=True)
+    assert conv3d_cs_direct.launches == before + 1
+    want, st_want = conv3d_cs_reference(x, wt, None, h=6, w=16, emit_stats=True)
+    assert _ulps(got, want) <= 1.0
+    torch.testing.assert_close(
+        st, st_want, rtol=1e-3, atol=1e-3 * float(st_want.abs().max())
+    )
+
+
 def test_conv3d_cs_rejects_what_the_kernel_does_not_take(dev):
     x = torch.zeros(1, 2, 3, 16, dtype=torch.float32, device=dev)
     wt = torch.zeros(3, 3, 3, 3, 4, device=dev)
