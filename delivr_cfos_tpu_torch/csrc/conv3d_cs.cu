@@ -65,9 +65,12 @@
 //   the prologue applied and zeros around, in bands of rows: (rows + 2) x
 //   (W + 4) floats a plane, so 3 x 98 x 68 x 4 = 79968 bytes hold the whole
 //   96 x 64 plane in one band, 83424 with the weights (direct_band_rows in
-//   ops/conv3d_cs.py keeps a band under 100 KB). 127 registers, no spills,
-//   2 blocks of 256 threads an SM. Measured at the first conv (H100, 700 W):
-//   bands of 32 rows took the same time as the whole plane. A work unit is
+//   ops/conv3d_cs.py keeps a band under 100 KB). A thread stages 8 columns
+//   of a row (one 16-byte load where x is aligned). 128 registers, no
+//   spills, 2 blocks of 256 threads an SM. Measured at the first conv
+//   (conv3d_cs_direct_variants.py in the history): bands of 32 or 16 rows
+//   and blocks of 128 threads were 2-10 % slower than the whole plane with
+//   256, four padded columns a thread 9 % slower. A work unit is
 //   8 consecutive x voxels x 8 output channels, 64 accumulators: per (dz, dy)
 //   the thread reads its 10 input values once (two float4 and a float2) for
 //   the 3 dx taps, and each tap's 8 weights are a broadcast read. Warp w
@@ -580,10 +583,6 @@ __global__ void __launch_bounds__(DIRECT_THREADS, 512 / DIRECT_THREADS)
     if (!active) continue;
 
     for (int u = slot; u < rows * G; u += STRIDE) {
-      // a compiler fence: without it the 27 taps' weight reads (216 floats)
-      // are hoisted out of this loop, and at the 128-register cap of 2
-      // blocks an SM they spill (1984 bytes a thread; 31 ms against 3.6)
-      asm volatile("" ::: "memory");
       const int y = u / G;
       const int x0 = (u - y * G) * DV;
       float acc[DC][DV];
@@ -592,7 +591,10 @@ __global__ void __launch_bounds__(DIRECT_THREADS, 512 / DIRECT_THREADS)
 #pragma unroll
         for (int i = 0; i < DV; ++i) acc[j][i] = 0.f;
       }
-#pragma unroll
+      // dz stays a loop: unrolled, the compiler hoists all 27 taps' weight
+      // reads (216 floats) out of the unit loop, and at the 128-register cap
+      // of 2 blocks an SM they spill (31 ms against 3.2)
+#pragma unroll 1
       for (int dz = 0; dz < 3; ++dz) {
 #pragma unroll
         for (int dy = 0; dy < 3; ++dy) {
