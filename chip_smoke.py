@@ -27,7 +27,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              of the same forward at the same batch, and upcat_1 with a bias:
              within one bf16 ULP at max(|value|, rms). Times the kernel, the
              plain version and one cuDNN bf16 F.conv_transpose3d on the input
-             laid out NCDHW beforehand (a yardstick only).
+             laid out NCDHW beforehand (a yardstick only); each row gives
+             the bound, the fraction of it reached, the grid, the kernel's
+             registers and blocks per SM; a "deconv_sum" line sums the five
+             rows' ms, bound and cuDNN ms.
 4. model   — full-width fast forward (apply_cs) against the f32 parity
              BasicUNet on the same seeded weights, on volume windows.
 5. stage2  — run_inference on the (192, 480, 384) uint16 half-bright volume
@@ -303,7 +306,7 @@ def check_deconv(card, name, b, d, h, w, c, o, *, with_bias=False, chunk=16):
     """One deconv2x_cs case against the plain version (batch-chunked so the
     f32 reference fits beside the full-batch tensors); returns a row."""
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
-        deconv2x_cs, deconv2x_cs_reference,
+        deconv2x_cs, deconv2x_cs_plan, deconv2x_cs_reference, deconv2x_cs_resources,
     )
 
     dev = torch.device("cuda")
@@ -345,12 +348,18 @@ def check_deconv(card, name, b, d, h, w, c, o, *, with_bias=False, chunk=16):
               + (4.0 * o if with_bias else 0.0))
     flops = 2.0 * b * d * h * w * c * 8 * o
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    plan = deconv2x_cs_plan(b * d, h, w, o, x_aligned=x.data_ptr() % 16 == 0,
+                            sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    regs, blocks_per_sm = deconv2x_cs_resources(plan.vec_in, plan.fast_out)
+    bms = 1e3 * max(t_ops, t_bytes)
     row = dict(phase="deconv", card=card, case=name + ("/bias" if with_bias else ""),
                b=b, d=d, h=h, w=w, c_in=c, c_out=o, bias=with_bias, max_ulps=ulps,
                max_abs_err=err, finite=finite, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=1e3 * max(t_ops, t_bytes),
+               library_ms=library_ms, bound_ms=bms,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               gbytes_per_s=nbytes / ms / 1e6)
+               fraction_of_bound=bms / ms, gbytes_per_s=nbytes / ms / 1e6,
+               grid=[plan.n_tiles, plan.m_blocks], registers=regs,
+               blocks_per_sm=blocks_per_sm)
     emit(row)
     if ulps > 1.0 or not finite:
         raise AssertionError(f"deconv2x_cs disagrees with its plain version: {row}")
@@ -785,6 +794,9 @@ def main() -> int:
                    for n, d, h, w, c, o in up_shapes]
     n1, d1, h1, w1, c1, o1 = up_shapes[-1]
     deconv_extra = [check_deconv(smi, n1, batch, d1, h1, w1, c1, o1, with_bias=True)]
+    emit(dict(phase="deconv_sum", card=smi, rows=len(deconv_rows + deconv_extra),
+              **{k: sum(r[k] for r in deconv_rows + deconv_extra)
+                 for k in ("ms", "bound_ms", "library_ms")}))
     torch.cuda.empty_cache()
 
     # --- 4. full-width fast forward vs f32 parity ---------------------------

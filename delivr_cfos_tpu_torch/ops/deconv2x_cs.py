@@ -18,6 +18,7 @@ out[b, 2d+a, o, (2y+β)·2W + 2x+γ] = bf16(Σ_c x[b, d, c, y·W+x]·w[c, o, a, 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -25,9 +26,40 @@ import torch.nn.functional as F
 from delivr_cfos_tpu_torch.ops import _build
 from delivr_cfos_tpu_torch.utils.device import full_f32
 
-# the kernel stages a block's weights and input tile, (C rounded up to 16)
-# × 208 bf16, beside a 34 KiB f32 tile, in at most 227 KiB of shared memory
+# the widest input the wrapper takes (the production UpCats take at most 256)
 MAX_C = 464
+TM = 64  # input voxels per tile: the GEMM's rows
+TILE_O = 32  # output channels per tile: 8 phases × 32 = 256 GEMM columns
+BLOCKS_PER_SM = 2  # resident blocks an SM (registers and shared memory)
+MAX_LAUNCH_VOXELS = 1 << 30  # input voxels a launch takes: 32-bit offsets
+
+
+class DeconvPlan(NamedTuple):
+    """The grid and the kernel instance of one launch."""
+
+    n_tiles: int  # output-channel tiles: gridDim.x
+    m_tiles: int  # 64-voxel tiles over the flattened planes
+    m_blocks: int  # gridDim.y: block (nt, mg) walks tiles mg, mg + m_blocks, ...
+    vec_in: bool  # 16-byte cp.async staging (H·W % 8 == 0, x 16-byte aligned)
+    fast_out: bool  # output runs through shared memory (W even, 64 % W == 0)
+
+
+def planes_per_launch(h: int, w: int) -> int:
+    """(b, d) planes one launch takes, so that its voxels stay under
+    ``MAX_LAUNCH_VOXELS``; the wrapper launches once per such run of planes."""
+    return max(1, MAX_LAUNCH_VOXELS // (h * w))
+
+
+def deconv2x_cs_plan(planes: int, h: int, w: int, o: int, *, x_aligned: bool = True,
+                     sms: int = 132) -> DeconvPlan:
+    """The fixed rule for one launch over ``planes`` H×W planes into ``o``
+    channels: enough blocks for ``BLOCKS_PER_SM`` on each of ``sms`` SMs,
+    shared among the output-channel tiles, and never more than M tiles."""
+    m_tiles = -(-planes * h * w // TM)
+    n_tiles = -(-o // TILE_O)
+    m_blocks = max(1, min(m_tiles, BLOCKS_PER_SM * sms // n_tiles, 65535))
+    return DeconvPlan(n_tiles, m_tiles, m_blocks, (h * w) % 8 == 0 and x_aligned,
+                      w % 2 == 0 and TM % w == 0)
 
 
 def deconv2x_cs_reference(x, weights, bias=None, *, h, w):
@@ -47,14 +79,15 @@ def deconv2x_cs_reference(x, weights, bias=None, *, h, w):
 
 
 def kernel_weights(weights):
-    """(C, O, 2, 2, 2) → the kernel's layout, (⌈O/16⌉, C, 8, 16) bf16: phase
-    4a + 2β + γ before O, O zero-padded to a multiple of 16 and cut into
-    tiles of 16 channels, one block's weights contiguous."""
+    """(C, O, 2, 2, 2) → the kernel's B operand, (C, 8·OP) bf16, K-major:
+    column 8·o + p holds output channel o at phase p = 4a + 2β + γ, O
+    zero-padded to OP, a multiple of ``TILE_O``. A row's 256 columns of one
+    channel tile are contiguous, so a ring stage copies them in 16-byte
+    pieces."""
     c, o = weights.shape[:2]
-    tiles = -(-o // 16)
-    w8 = weights.to(torch.bfloat16).permute(0, 2, 3, 4, 1).reshape(c, 8, o)
-    w8 = F.pad(w8, (0, 16 * tiles - o))
-    return w8.reshape(c, 8, tiles, 16).permute(2, 0, 1, 3).contiguous()
+    op = -(-o // TILE_O) * TILE_O
+    w8 = weights.to(torch.bfloat16).reshape(c, o, 8)
+    return F.pad(w8, (0, 0, 0, op - o)).reshape(c, 8 * op).contiguous()
 
 
 def deconv2x_cs(x, weights, bias=None, *, h, w):
@@ -96,27 +129,50 @@ def deconv2x_cs(x, weights, bias=None, *, h, w):
     if out.numel() == 0:
         return out
     lib = _launcher()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # the planes flattened: x (B·D, C, S), out (2·B·D, O, 4S)
+    xs, outs = x.view(b_ * n_d, c, s), out.view(2 * b_ * n_d, o, 4 * s)
+    step = planes_per_launch(h, w)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.deconv2x_cs_launch(
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w_k.data_ptr()),
-            ctypes.c_void_p(bias.data_ptr() if bias is not None else None),
-            ctypes.c_void_p(out.data_ptr()), b_, n_d, c, o, h, w,
-            ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(f"deconv2x_cs kernel launch failed: CUDA error {err}")
-    deconv2x_cs.launches += 1
+        for p0 in range(0, b_ * n_d, step):
+            xp, op = xs[p0:p0 + step], outs[2 * p0:2 * (p0 + step)]
+            plan = deconv2x_cs_plan(xp.shape[0], h, w, o, sms=sms,
+                                    x_aligned=xp.data_ptr() % 16 == 0)
+            err = lib.deconv2x_cs_launch(
+                ctypes.c_void_p(xp.data_ptr()), ctypes.c_void_p(w_k.data_ptr()),
+                ctypes.c_void_p(bias.data_ptr() if bias is not None else None),
+                ctypes.c_void_p(op.data_ptr()), xp.shape[0], c, o, h, w,
+                plan.m_blocks, int(plan.vec_in), int(plan.fast_out),
+                ctypes.c_void_p(stream),
+            )
+            if err != 0:
+                raise RuntimeError(f"deconv2x_cs kernel launch failed: CUDA error {err}")
+            deconv2x_cs.launches += 1
     return out
 
 
 deconv2x_cs.launches = 0
 
 
+def deconv2x_cs_resources(vec_in: bool = True, fast_out: bool = True) -> tuple[int, int]:
+    """(registers a thread, resident blocks an SM) of the kernel instance
+    that (``vec_in``, ``fast_out``) picks, as the card reports them."""
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    err = _launcher().deconv2x_cs_resources(int(vec_in), int(fast_out), ctypes.byref(regs),
+                                            ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"deconv2x_cs_resources failed: CUDA error {err}")
+    return regs.value, blocks.value
+
+
 def _launcher():
     lib = _build.load("deconv2x_cs")
     fn = lib.deconv2x_cs_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.deconv2x_cs_resources.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2)
+        lib.deconv2x_cs_resources.restype = ctypes.c_int
     return lib

@@ -23,10 +23,13 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     conv3d_cs_reference,
     kernel_weights,
 )
+from delivr_cfos_tpu_torch.ops import deconv2x_cs as deconv_module
 from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
     MAX_C,
     deconv2x_cs,
+    deconv2x_cs_plan,
     deconv2x_cs_reference,
+    deconv2x_cs_resources,
 )
 from delivr_cfos_tpu_torch.ops.instance_norm_mish import (
     instance_norm_mish,
@@ -342,6 +345,60 @@ def test_deconv2x_cs_kernel_matches_plain_version(dev, b, d, c, h, w, o, with_bi
     assert _ulps(got, want) <= 1.0
     # a fixed K order: the same bits on every launch
     assert torch.equal(deconv2x_cs(x, wt, bias, h=h, w=w), got)
+
+
+@pytest.mark.parametrize("b,d,c,h,w,o,with_bias", [
+    # 64-voxel tiles across planes and batches, B·D·H·W = 360 not a multiple
+    # of the tile
+    (3, 5, 16, 6, 4, 8, False),
+    # C not a multiple of the 32-channel K chunk: a ragged last chunk
+    (2, 3, 48, 6, 4, 16, True),
+    (1, 4, 80, 12, 8, 24, False),
+    (1, 2, MAX_C, 4, 8, 40, True),
+    # 8·O not a multiple of the 256-column N tile
+    (2, 3, 32, 6, 4, 20, False),
+    (2, 2, 64, 6, 4, 40, True),
+    # upcat_4 and upcat_1 at a batch of 3
+    (3, 6, 256, 6, 4, 128, False),
+    (3, 48, 32, 48, 32, 32, True),
+])
+def test_deconv2x_cs_kernel_tiles(dev, b, d, c, h, w, o, with_bias):
+    """The flattened GEMM's ragged edges: within one bf16 ULP at
+    max(|value|, rms) of the plain version, the same bits on a relaunch."""
+    g = torch.Generator().manual_seed(b * 1000 + c * 10 + o)
+    x = torch.randn((b, d, c, h * w), generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn((c, o, 2, 2, 2), generator=g) / (8 * c) ** 0.5).to(dev)
+    bias = torch.randn((o,), generator=g).to(dev) if with_bias else None
+    before = deconv2x_cs.launches
+    got = deconv2x_cs(x, wt, bias, h=h, w=w)
+    torch.cuda.synchronize()
+    assert deconv2x_cs.launches == before + 1
+    assert _ulps(got, deconv2x_cs_reference(x, wt, bias, h=h, w=w)) <= 1.0
+    assert torch.equal(deconv2x_cs(x, wt, bias, h=h, w=w), got)
+
+
+def test_deconv2x_cs_cuts_a_call_into_launches_of_whole_planes(dev, monkeypatch):
+    """Past MAX_LAUNCH_VOXELS the wrapper launches once per run of planes,
+    each launch counted; the result is the one launch's."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 5, 16, 24), generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn((16, 8, 2, 2, 2), generator=g) / 8).to(dev)
+    whole = deconv2x_cs(x, wt, None, h=6, w=4)
+    monkeypatch.setattr(deconv_module, "MAX_LAUNCH_VOXELS", 3 * 24)  # 3 planes a launch
+    before = deconv2x_cs.launches
+    cut = deconv2x_cs(x, wt, None, h=6, w=4)
+    torch.cuda.synchronize()
+    assert deconv2x_cs.launches == before + 4
+    assert torch.equal(cut, whole)
+
+
+def test_deconv2x_cs_resources(dev):
+    """The production instance (16-byte staging, output runs) keeps two
+    blocks an SM, which the plan's grid assumes."""
+    regs, blocks = deconv2x_cs_resources(True, True)
+    assert 0 < regs <= 128 and blocks >= 2
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert deconv2x_cs_plan(128 * 48, 48, 32, 32, sms=sms).m_blocks == 2 * sms
 
 
 def test_deconv2x_cs_kernel_on_a_misaligned_view(dev):

@@ -158,14 +158,51 @@ def test_fast_forward_runs_every_upcat_through_deconv2x_cs(monkeypatch):
 
 
 def test_kernel_weight_layout():
-    """Block t's weights: w_k[t, c, 4a + 2β + γ, j] = bf16(w[c, 16t + j, a, β, γ]),
-    zero for channels past O."""
+    """The B operand: w_k[c, 8·o + 4a + 2β + γ] = bf16(w[c, o, a, β, γ]), O
+    zero-padded to a multiple of 32 channels, K-major and contiguous."""
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import kernel_weights
 
     wt = torch.randn(3, 20, 2, 2, 2)
     wk = kernel_weights(wt)
-    assert wk.shape == (2, 3, 8, 16) and wk.dtype == torch.bfloat16 and wk.is_contiguous()
-    for t, c, a, be, ga, j in np.ndindex(2, 3, 2, 2, 2, 16):
-        o = 16 * t + j
+    assert wk.shape == (3, 8 * 32) and wk.dtype == torch.bfloat16 and wk.is_contiguous()
+    for c, o, a, be, ga in np.ndindex(3, 32, 2, 2, 2):
         want = wt[c, o, a, be, ga].to(torch.bfloat16) if o < 20 else torch.tensor(0.0)
-        assert float(wk[t, c, 4 * a + 2 * be + ga, j]) == float(want)
+        assert float(wk[c, 8 * o + 4 * a + 2 * be + ga]) == float(want)
+
+
+# (planes B·D, H, W, O) → (N tiles, M tiles, m_blocks, vec_in, fast_out) on
+# 132 SMs: the four UpCats of the production forward at the stage-2 batch of
+# 128 windows, then the odd shapes of the card tests
+PLANS = [
+    ((128 * 6, 6, 4, 128), (4, 288, 66, True, True)),  # upcat_4
+    ((128 * 12, 12, 8, 64), (2, 2304, 132, True, True)),  # upcat_3
+    ((128 * 24, 24, 16, 32), (1, 18432, 264, True, True)),  # upcat_2
+    ((128 * 48, 48, 32, 32), (1, 147456, 264, True, True)),  # upcat_1
+    ((3 * 5, 6, 4, 8), (1, 6, 6, True, True)),  # tiles across planes and batches
+    ((2 * 3, 3, 5, 3), (1, 2, 2, False, False)),  # odd C, H, W, O
+    ((1 * 2, 9, 10, 20), (1, 3, 3, False, False)),  # W = 10 does not divide a tile
+    ((1 * 2, 2, 4, 17), (1, 1, 1, True, True)),  # one ragged tile
+    ((1 * 1, 1, 4, 16), (1, 1, 1, False, True)),  # a 4-voxel plane
+    ((2 * 2, 6, 4, 40), (2, 2, 2, True, True)),  # 8·O = 320: a ragged N tile
+]
+
+
+@pytest.mark.parametrize("args,want", PLANS)
+def test_deconv2x_cs_plan(args, want):
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs_plan
+
+    assert tuple(deconv2x_cs_plan(*args)) == want
+
+
+def test_deconv2x_cs_plan_of_a_misaligned_input_and_a_huge_call():
+    """A misaligned x stages one voxel at a time; a call whose planes hold
+    more than 2^30 voxels is cut into launches of whole planes."""
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
+        MAX_LAUNCH_VOXELS, deconv2x_cs_plan, planes_per_launch,
+    )
+
+    assert not deconv2x_cs_plan(6, 4, 8, 8, x_aligned=False).vec_in
+    assert deconv2x_cs_plan(6, 4, 8, 8, x_aligned=False).fast_out
+    assert planes_per_launch(48, 32) == MAX_LAUNCH_VOXELS // 1536 > 128 * 48
+    assert planes_per_launch(1 << 14, 1 << 14) == 4
+    assert deconv2x_cs_plan(4, 1 << 14, 1 << 14, 8).m_tiles == 4 * (1 << 28) // 64
