@@ -9,10 +9,12 @@ forward: B = 128 windows, (D, H, W, C, O) = (6, 6, 4, 256, 128),
 Each variant is the source with a text change, built with nvcc (ptxas's
 registers and spills printed), checked against the plain version on 8
 windows (bf16 ULPs) and timed with CUDA events, twice in turns (the order
-reversed the second time): the shipped kernel, a ring of 2 stages, 4-byte
+reversed the second time): the shipped kernel, a ring of 2 stages (whose
+buffers then keep their weights at K = 32 and 64), the weights copied
+again for every K chunk even where the ring's buffers keep them, 4-byte
 stores from registers in place of the output runs, streaming (evict-first)
-16-byte stores, one tile a block in place of the persistent grid, and the
-old kernel.
+16-byte stores, one tile a block in place of the persistent grid (at most
+65535 blocks: upcat_1 then walks 2.25 tiles a block), and the old kernel.
 """
 
 import ctypes
@@ -30,10 +32,12 @@ from delivr_cfos_tpu_torch.ops import _build  # noqa: E402
 from delivr_cfos_tpu_torch.ops import deconv2x_cs as m  # noqa: E402
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-STORE = "*reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(e_s + r * run + P8);"
+STORE = ("*reinterpret_cast<uint4*>(dst + static_cast<size_t>(s) * 16 * S) =\n"
+         "              *reinterpret_cast<const uint4*>(e_s + (warp + 8 * s) * run + 8 * lane);")
 VARIANTS = {
     "shipped": [],
     "ring_2": [("constexpr int STAGES = 3;", "constexpr int STAGES = 2;")],
+    "b_every_chunk": [("    if (it >= STAGES && STAGES % KI == 0) return;\n", "")],
     "register_stores": [("const Kernel kern = pick(vec_in, fast_out);\n  cudaError_t e =\n"
                          "      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,"
                          " static_cast<int>(SMEM));\n  if (e != cudaSuccess) return static_cast<int>(e);\n"
@@ -42,8 +46,8 @@ VARIANTS = {
                          "      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,"
                          " static_cast<int>(SMEM));\n  if (e != cudaSuccess) return static_cast<int>(e);\n"
                          "  kern<<<")],
-    "streaming_stores": [(STORE, "__stcs(reinterpret_cast<uint4*>(dst), "
-                                 "*reinterpret_cast<const uint4*>(e_s + r * run + P8));")],
+    "streaming_stores": [(STORE, "__stcs(reinterpret_cast<uint4*>(dst + static_cast<size_t>(s) * 16 * S), "
+                                 "*reinterpret_cast<const uint4*>(e_s + (warp + 8 * s) * run + 8 * lane));")],
     "one_tile_a_block": [],  # the shipped library, m_blocks = M tiles
 }
 SHAPES = [("upcat_4", 6, 6, 4, 256, 128), ("upcat_3", 12, 12, 8, 128, 64),
@@ -133,7 +137,7 @@ def main() -> int:
                                                      stream)
                         assert err == 0, err
                 else:
-                    mb = plan.m_tiles if name == "one_tile_a_block" else plan.m_blocks
+                    mb = min(plan.m_tiles, 65535) if name == "one_tile_a_block" else plan.m_blocks
 
                     def run():
                         err = lib.deconv2x_cs_launch(ptr(x.data_ptr()), ptr(w_new.data_ptr()),

@@ -161,7 +161,9 @@ __global__ void __launch_bounds__(THREADS, 2) deconv2x_cs_kernel(Args p) {
         dst[e] = v;
       }
     }
-    // B chunk: KC rows of TN columns, TN / 8 copies a row
+    // B chunk: KC rows of TN columns, TN / 8 copies a row. Where KI divides
+    // STAGES, ring buffer j always holds chunk j % KI: filled once.
+    if (it >= STAGES && STAGES % KI == 0) return;
 #pragma unroll
     for (int i = tid; i < KC * (TN / 8); i += THREADS) {
       const int r = i / (TN / 8);
@@ -198,6 +200,10 @@ __global__ void __launch_bounds__(THREADS, 2) deconv2x_cs_kernel(Args p) {
   // length padded so that the two phases a of one warp store fall in other
   // banks than each other
   const int run = 4 * TM + (p.W == 16 ? 16 : 32);
+  // the copy-out's fixed coordinates (FAST: W is a power of two): lane c's
+  // chunk starts in tile row ir_c; warp w's first channel
+  const int ir_c = (2 * lane) & ~(p.W - 1);
+  const int o_w = nt * TNC + (warp >> 1);
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -244,7 +250,7 @@ __global__ void __launch_bounds__(THREADS, 2) deconv2x_cs_kernel(Args p) {
         for (int h = 0; h < 2; ++h) {
           const int i = 32 * wm + 16 * mi + 8 * h + (lane >> 2);
           // output order within the tile's rows: (row, beta, x, gamma)
-          const int pos = 4 * i - 2 * (i % p.W) + 2 * ph_b * p.W;
+          const int pos = 4 * i - 2 * (i & (p.W - 1)) + 2 * ph_b * p.W;
 #pragma unroll
           for (int ni = 0; ni < 8; ++ni) {
             const int r = 2 * (8 * wn + ni) + ph_a;
@@ -254,23 +260,21 @@ __global__ void __launch_bounds__(THREADS, 2) deconv2x_cs_kernel(Args p) {
         }
       }
       __syncthreads();  // the tile's runs are complete
-      // 16-byte chunk c of run r = 2 o_local + a: output rows of tile row
-      // ir = the chunk's input row start, in the plane that row lies in
-      const int valid = min(TM, M - m0);
-      constexpr int CHUNKS = 4 * TM / 8;  // a run's 16-byte chunks
-      for (int idx = tid; idx < 2 * TNC * CHUNKS; idx += THREADS) {
-        const int c = idx % CHUNKS;
-        const int r = idx / CHUNKS;
-        const int o = nt * TNC + (r >> 1);
-        const int P8 = 8 * c;
-        const int ir = P8 / (4 * p.W) * p.W;
-        if (o >= p.O || ir >= valid) continue;
-        const int m = m0 + ir;
+      // warp w copies runs r = w + 8s (channel o_w + 4s, phase a = w & 1),
+      // lane c their 16-byte chunk c, which lies in the output rows of tile
+      // row ir_c: one plane and one division a tile for the thread
+      if (ir_c < M - m0) {
+        const int m = m0 + ir_c;
         const int pd = m / S;
         __nv_bfloat16* dst = p.out +
-                             (static_cast<size_t>(2 * pd + (r & 1)) * p.O + o) * (4 * static_cast<size_t>(S)) +
-                             4 * (m - pd * S) + (P8 - 4 * ir);
-        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(e_s + r * run + P8);
+                             (static_cast<size_t>(2 * pd + (warp & 1)) * p.O + o_w) * (4 * static_cast<size_t>(S)) +
+                             4 * (m - pd * S) + (8 * lane - 4 * ir_c);
+#pragma unroll
+        for (int s = 0; s < 2 * TNC / (THREADS / 32); ++s) {
+          if (o_w + 4 * s >= p.O) break;
+          *reinterpret_cast<uint4*>(dst + static_cast<size_t>(s) * 16 * S) =
+              *reinterpret_cast<const uint4*>(e_s + (warp + 8 * s) * run + 8 * lane);
+        }
       }
       // e_s is rewritten after the next iteration's __syncthreads
     } else {

@@ -18,6 +18,7 @@ out[b, 2d+a, o, (2y+β)·2W + 2x+γ] = bf16(Σ_c x[b, d, c, y·W+x]·w[c, o, a, 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -124,25 +125,26 @@ def deconv2x_cs(x, weights, bias=None, *, h, w):
             f"bias must be contiguous ({o},) float32 on {dev}, got "
             f"{tuple(bias.shape)} {bias.dtype} on {bias.device}"
         )
-    w_k = kernel_weights(weights)
+    w_k = _cached_kernel_weights(weights)
     out = torch.empty((b_, 2 * n_d, o, 4 * s), dtype=torch.bfloat16, device=dev)
     if out.numel() == 0:
         return out
     lib = _launcher()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    # the planes flattened: x (B·D, C, S), out (2·B·D, O, 4S)
-    xs, outs = x.view(b_ * n_d, c, s), out.view(2 * b_ * n_d, o, 4 * s)
-    step = planes_per_launch(h, w)
+    planes, step = b_ * n_d, planes_per_launch(h, w)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        for p0 in range(0, b_ * n_d, step):
-            xp, op = xs[p0:p0 + step], outs[2 * p0:2 * (p0 + step)]
-            plan = deconv2x_cs_plan(xp.shape[0], h, w, o, sms=sms,
-                                    x_aligned=xp.data_ptr() % 16 == 0)
+        # the planes flattened, x (B·D, C, S) and out (2·B·D, O, 4S), in runs
+        # of whole planes: plane p0 starts at element p0·C·S of x, 2·p0·O·4S
+        # of out
+        for p0 in range(0, planes, step):
+            n = min(step, planes - p0)
+            x_ptr = x.data_ptr() + 2 * p0 * c * s
+            plan = deconv2x_cs_plan(n, h, w, o, sms=sms, x_aligned=x_ptr % 16 == 0)
             err = lib.deconv2x_cs_launch(
-                ctypes.c_void_p(xp.data_ptr()), ctypes.c_void_p(w_k.data_ptr()),
+                ctypes.c_void_p(x_ptr), ctypes.c_void_p(w_k.data_ptr()),
                 ctypes.c_void_p(bias.data_ptr() if bias is not None else None),
-                ctypes.c_void_p(op.data_ptr()), xp.shape[0], c, o, h, w,
+                ctypes.c_void_p(out.data_ptr() + 2 * 2 * p0 * o * 4 * s), n, c, o, h, w,
                 plan.m_blocks, int(plan.vec_in), int(plan.fast_out),
                 ctypes.c_void_p(stream),
             )
@@ -153,6 +155,25 @@ def deconv2x_cs(x, weights, bias=None, *, h, w):
 
 
 deconv2x_cs.launches = 0
+
+
+# kernel_weights of the weight tensors seen last, by id: (a weak reference
+# to the tensor, its data pointer and version counter, the re-laid weights).
+# A model passes the same parameters on every forward; an in-place update
+# bumps the version and the weights are laid out anew.
+_WEIGHTS: dict[int, tuple] = {}
+
+
+def _cached_kernel_weights(weights):
+    key = id(weights)
+    hit = _WEIGHTS.get(key)
+    if (hit is not None and hit[0]() is weights and hit[1] == weights.data_ptr()
+            and hit[2] == weights._version):
+        return hit[3]
+    w_k = kernel_weights(weights)
+    _WEIGHTS[key] = (weakref.ref(weights, lambda _, k=key: _WEIGHTS.pop(k, None)),
+                     weights.data_ptr(), weights._version, w_k)
+    return w_k
 
 
 def deconv2x_cs_resources(vec_in: bool = True, fast_out: bool = True) -> tuple[int, int]:

@@ -206,3 +206,19 @@ def test_deconv2x_cs_plan_of_a_misaligned_input_and_a_huge_call():
     assert planes_per_launch(48, 32) == MAX_LAUNCH_VOXELS // 1536 > 128 * 48
     assert planes_per_launch(1 << 14, 1 << 14) == 4
     assert deconv2x_cs_plan(4, 1 << 14, 1 << 14, 8).m_tiles == 4 * (1 << 28) // 64
+
+
+def test_kernel_weights_are_laid_out_once_per_weight_version():
+    """The wrapper re-lays a weight tensor once and again after an in-place
+    update; another tensor, even with equal values, gets its own."""
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import _cached_kernel_weights, kernel_weights
+
+    wt = torch.randn(4, 8, 2, 2, 2)
+    first = _cached_kernel_weights(wt)
+    assert _cached_kernel_weights(wt) is first
+    assert torch.equal(first, kernel_weights(wt))
+    wt.mul_(2)
+    again = _cached_kernel_weights(wt)
+    assert again is not first and torch.equal(again, kernel_weights(wt))
+    other = wt.clone()
+    assert _cached_kernel_weights(other) is not again
