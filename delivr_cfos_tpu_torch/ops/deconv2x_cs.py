@@ -176,7 +176,7 @@ def _cached_kernel_weights(weights):
     return w_k
 
 
-def deconv2x_cs_resources(vec_in: bool = True, fast_out: bool = True) -> tuple[int, int]:
+def deconv2x_cs_resources(vec_in: bool, fast_out: bool) -> tuple[int, int]:
     """(registers a thread, resident blocks an SM) of the kernel instance
     that (``vec_in``, ``fast_out``) picks, as the card reports them."""
     regs, blocks = ctypes.c_int(), ctypes.c_int()
