@@ -5,10 +5,11 @@
 // delivr_cfos_tpu/models/basic_unet_cs.py::_deconv2x_cs, with its contract.
 // The (b, d) planes are flattened, P = B * D of them, S = H * W voxels each:
 //   x     (P, C, S) bf16
-//   w     (C, NP) bf16, K-major: w[c, 8 o + p] = the ConvTranspose3d weight
+//   w     (C, 8 O) bf16, K-major: w[c, 8 o + p] = the ConvTranspose3d weight
 //         (C, O, 2, 2, 2) at [c, o, a, beta, gamma], phase p = 4a + 2beta +
-//         gamma; O zero-padded to a multiple of TNC, NP = 8 * that; phase a
-//         reads kernel index a directly, no flip
+//         gamma, which is that tensor's own order; phase a reads kernel
+//         index a directly, no flip. The staging zero-fills the columns of
+//         the last N tile past 8 O.
 //   bias  optional (O,) f32, added in f32 before the one rounding
 //   out   (2P, O, 4S) bf16, which is (B, 2D, O, 4*H*W) in its final order:
 //         out[2 pd + a, o, (2y + beta) * 2W + 2x + gamma]
@@ -161,15 +162,16 @@ __global__ void __launch_bounds__(THREADS, 2) deconv2x_cs_kernel(Args p) {
         dst[e] = v;
       }
     }
-    // B chunk: KC rows of TN columns, TN / 8 copies a row. Where KI divides
-    // STAGES, ring buffer j always holds chunk j % KI: filled once.
+    // B chunk: KC rows of TN columns, TN / 8 copies a row, each 8 columns of
+    // one output channel. Where KI divides STAGES, ring buffer j always
+    // holds chunk j % KI: filled once.
     if (it >= STAGES && STAGES % KI == 0) return;
 #pragma unroll
     for (int i = tid; i < KC * (TN / 8); i += THREADS) {
       const int r = i / (TN / 8);
       const int q = (i % (TN / 8)) * 8;
       const int kr = kc * KC + r;
-      const bool ok = kr < p.C;
+      const bool ok = kr < p.C && nt * TN + q < p.NP;
       cp_async16(b_s + static_cast<uint32_t>(r * LDB + q) * 2u,
                  ok ? wb + static_cast<size_t>(kr) * p.NP + q : p.w, ok);
     }
@@ -268,7 +270,7 @@ __global__ void __launch_bounds__(THREADS, 2) deconv2x_cs_kernel(Args p) {
         const int pd = m / S;
         __nv_bfloat16* dst = p.out +
                              (static_cast<size_t>(2 * pd + (warp & 1)) * p.O + o_w) * (4 * static_cast<size_t>(S)) +
-                             4 * (m - pd * S) + (8 * lane - 4 * ir_c);
+                             4 * static_cast<size_t>(m - pd * S) + (8 * lane - 4 * ir_c);
 #pragma unroll
         for (int s = 0; s < 2 * TNC / (THREADS / 32); ++s) {
           if (o_w + 4 * s >= p.O) break;
@@ -323,16 +325,17 @@ Kernel pick(int vec_in, int fast_out) {
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched). x is
-// (P, C, H*W), w (C, 8 * ceil(O / 32) * 32) K-major, out (2P, O, 4*H*W);
-// P * H * W < 2^30. The grid is (ceil(O / 32), m_blocks), 1 <= m_blocks <=
-// the number of 64-voxel tiles. vec_in needs H*W % 8 == 0 and x 16-byte
-// aligned; fast_out needs W even, 64 % W == 0 and out 16-byte aligned.
+// (P, C, H*W), w (C, 8 O) K-major and 16-byte aligned, out (2P, O, 4*H*W);
+// P * H * W < 2^30: voxel indices are 32-bit. The grid is (ceil(O / 32),
+// m_blocks), 1 <= m_blocks <= the number of 64-voxel tiles. vec_in needs
+// H*W % 8 == 0 and x 16-byte aligned; fast_out needs W even, 64 % W == 0
+// and out 16-byte aligned.
 extern "C" int deconv2x_cs_launch(const void* x, const void* w, const void* bias, void* out,
                                   int P, int C, int O, int H, int W, int m_blocks, int vec_in,
                                   int fast_out, void* stream) {
   const long long S = static_cast<long long>(H) * W;
   const long long M = P * S;
-  if (P <= 0 || C <= 0 || O <= 0 || H <= 0 || W <= 0 || S > (1 << 28) || M >= (1LL << 30) ||
+  if (P <= 0 || C <= 0 || O <= 0 || H <= 0 || W <= 0 || M >= (1LL << 30) ||
       m_blocks <= 0 || m_blocks > (M + TM - 1) / TM || m_blocks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(w) & 15) != 0 ||
@@ -350,7 +353,7 @@ extern "C" int deconv2x_cs_launch(const void* x, const void* w, const void* bias
   p.H = H;
   p.W = W;
   const int n_tiles = (O + TNC - 1) / TNC;
-  p.NP = n_tiles * TN;
+  p.NP = 8 * O;
   const Kernel kern = pick(vec_in, fast_out);
   cudaError_t e =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(SMEM));

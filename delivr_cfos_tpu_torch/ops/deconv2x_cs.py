@@ -18,21 +18,21 @@ out[b, 2d+a, o, (2y+β)·2W + 2x+γ] = bf16(Σ_c x[b, d, c, y·W+x]·w[c, o, a, 
 from __future__ import annotations
 
 import ctypes
-import weakref
+import math
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from delivr_cfos_tpu_torch.ops import _build
 from delivr_cfos_tpu_torch.utils.device import full_f32
 
-# the widest input the wrapper takes (the production UpCats take at most 256)
+# the widest input the wrapper takes: a kept contract (the production UpCats
+# take at most 256), not a resource limit, since the kernel streams C
 MAX_C = 464
+MAX_VOXELS = 1 << 30  # B·D·H·W stays below it: the kernel's voxel indices are 32-bit
 TM = 64  # input voxels per tile: the GEMM's rows
 TILE_O = 32  # output channels per tile: 8 phases × 32 = 256 GEMM columns
 BLOCKS_PER_SM = 2  # resident blocks an SM (registers and shared memory)
-MAX_LAUNCH_VOXELS = 1 << 30  # input voxels a launch takes: 32-bit offsets
 
 
 class DeconvPlan(NamedTuple):
@@ -45,17 +45,15 @@ class DeconvPlan(NamedTuple):
     fast_out: bool  # output runs through shared memory (W even, 64 % W == 0)
 
 
-def planes_per_launch(h: int, w: int) -> int:
-    """(b, d) planes one launch takes, so that its voxels stay under
-    ``MAX_LAUNCH_VOXELS``; the wrapper launches once per such run of planes."""
-    return max(1, MAX_LAUNCH_VOXELS // (h * w))
-
-
-def deconv2x_cs_plan(planes: int, h: int, w: int, o: int, *, x_aligned: bool = True,
-                     sms: int = 132) -> DeconvPlan:
-    """The fixed rule for one launch over ``planes`` H×W planes into ``o``
-    channels: enough blocks for ``BLOCKS_PER_SM`` on each of ``sms`` SMs,
-    shared among the output-channel tiles, and never more than M tiles."""
+def deconv2x_cs_plan(planes: int, h: int, w: int, o: int, *, x_aligned: bool,
+                     sms: int) -> DeconvPlan:
+    """The fixed rule for the one launch over ``planes`` H×W planes into
+    ``o`` ≥ 1 channels: enough blocks for ``BLOCKS_PER_SM`` on each of
+    ``sms`` SMs, shared among the output-channel tiles, and never more than
+    M tiles. Raises where the planes hold ``MAX_VOXELS`` voxels or more."""
+    if planes * h * w >= MAX_VOXELS:
+        raise ValueError(f"{planes} planes of {h}×{w} voxels: the kernel takes fewer "
+                         f"than 2^30 input voxels a call")
     m_tiles = -(-planes * h * w // TM)
     n_tiles = -(-o // TILE_O)
     m_blocks = max(1, min(m_tiles, BLOCKS_PER_SM * sms // n_tiles, 65535))
@@ -80,15 +78,14 @@ def deconv2x_cs_reference(x, weights, bias=None, *, h, w):
 
 
 def kernel_weights(weights):
-    """(C, O, 2, 2, 2) → the kernel's B operand, (C, 8·OP) bf16, K-major:
-    column 8·o + p holds output channel o at phase p = 4a + 2β + γ, O
-    zero-padded to OP, a multiple of ``TILE_O``. A row's 256 columns of one
-    channel tile are contiguous, so a ring stage copies them in 16-byte
-    pieces."""
+    """(C, O, 2, 2, 2) → the kernel's B operand, (C, 8·O) bf16, K-major,
+    contiguous and 16-byte aligned: column 8·o + p holds output channel o at
+    phase p = 4a + 2β + γ, the weight tensor's own order. So an aligned
+    contiguous bf16 tensor is taken as it is and an f32 one costs one cast,
+    on every call; the kernel zero-fills the last channel tile past O."""
     c, o = weights.shape[:2]
-    op = -(-o // TILE_O) * TILE_O
-    w8 = weights.to(torch.bfloat16).reshape(c, o, 8)
-    return F.pad(w8, (0, 0, 0, op - o)).reshape(c, 8 * op).contiguous()
+    w_k = weights.to(torch.bfloat16).reshape(c, 8 * o).contiguous()
+    return w_k if w_k.data_ptr() % 16 == 0 else w_k.clone()
 
 
 def deconv2x_cs(x, weights, bias=None, *, h, w):
@@ -125,55 +122,29 @@ def deconv2x_cs(x, weights, bias=None, *, h, w):
             f"bias must be contiguous ({o},) float32 on {dev}, got "
             f"{tuple(bias.shape)} {bias.dtype} on {bias.device}"
         )
-    w_k = _cached_kernel_weights(weights)
-    out = torch.empty((b_, 2 * n_d, o, 4 * s), dtype=torch.bfloat16, device=dev)
-    if out.numel() == 0:
-        return out
+    shape = (b_, 2 * n_d, o, 4 * s)
+    if math.prod(shape) == 0:
+        return torch.empty(shape, dtype=torch.bfloat16, device=dev)
+    plan = deconv2x_cs_plan(b_ * n_d, h, w, o, x_aligned=x.data_ptr() % 16 == 0,
+                            sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    w_k = kernel_weights(weights)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=dev)
     lib = _launcher()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    planes, step = b_ * n_d, planes_per_launch(h, w)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        # the planes flattened, x (B·D, C, S) and out (2·B·D, O, 4S), in runs
-        # of whole planes: plane p0 starts at element p0·C·S of x, 2·p0·O·4S
-        # of out
-        for p0 in range(0, planes, step):
-            n = min(step, planes - p0)
-            x_ptr = x.data_ptr() + 2 * p0 * c * s
-            plan = deconv2x_cs_plan(n, h, w, o, sms=sms, x_aligned=x_ptr % 16 == 0)
-            err = lib.deconv2x_cs_launch(
-                ctypes.c_void_p(x_ptr), ctypes.c_void_p(w_k.data_ptr()),
-                ctypes.c_void_p(bias.data_ptr() if bias is not None else None),
-                ctypes.c_void_p(out.data_ptr() + 2 * 2 * p0 * o * 4 * s), n, c, o, h, w,
-                plan.m_blocks, int(plan.vec_in), int(plan.fast_out),
-                ctypes.c_void_p(stream),
-            )
-            if err != 0:
-                raise RuntimeError(f"deconv2x_cs kernel launch failed: CUDA error {err}")
-            deconv2x_cs.launches += 1
+        err = lib.deconv2x_cs_launch(
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w_k.data_ptr()),
+            ctypes.c_void_p(bias.data_ptr() if bias is not None else None),
+            ctypes.c_void_p(out.data_ptr()), b_ * n_d, c, o, h, w,
+            plan.m_blocks, int(plan.vec_in), int(plan.fast_out), ctypes.c_void_p(stream),
+        )
+    if err != 0:
+        raise RuntimeError(f"deconv2x_cs kernel launch failed: CUDA error {err}")
+    deconv2x_cs.launches += 1
     return out
 
 
 deconv2x_cs.launches = 0
-
-
-# kernel_weights of the weight tensors seen last, by id: (a weak reference
-# to the tensor, its data pointer and version counter, the re-laid weights).
-# A model passes the same parameters on every forward; an in-place update
-# bumps the version and the weights are laid out anew.
-_WEIGHTS: dict[int, tuple] = {}
-
-
-def _cached_kernel_weights(weights):
-    key = id(weights)
-    hit = _WEIGHTS.get(key)
-    if (hit is not None and hit[0]() is weights and hit[1] == weights.data_ptr()
-            and hit[2] == weights._version):
-        return hit[3]
-    w_k = kernel_weights(weights)
-    _WEIGHTS[key] = (weakref.ref(weights, lambda _, k=key: _WEIGHTS.pop(k, None)),
-                     weights.data_ptr(), weights._version, w_k)
-    return w_k
 
 
 def deconv2x_cs_resources(vec_in: bool, fast_out: bool) -> tuple[int, int]:

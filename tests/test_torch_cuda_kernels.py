@@ -23,7 +23,6 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     conv3d_cs_reference,
     kernel_weights,
 )
-from delivr_cfos_tpu_torch.ops import deconv2x_cs as deconv_module
 from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
     MAX_C,
     deconv2x_cs,
@@ -377,19 +376,15 @@ def test_deconv2x_cs_kernel_tiles(dev, b, d, c, h, w, o, with_bias):
     assert torch.equal(deconv2x_cs(x, wt, bias, h=h, w=w), got)
 
 
-def test_deconv2x_cs_cuts_a_call_into_launches_of_whole_planes(dev, monkeypatch):
-    """Past MAX_LAUNCH_VOXELS the wrapper launches once per run of planes,
-    each launch counted; the result is the one launch's."""
-    g = torch.Generator().manual_seed(5)
-    x = torch.randn((2, 5, 16, 24), generator=g).to(dev, torch.bfloat16)
-    wt = (torch.randn((16, 8, 2, 2, 2), generator=g) / 8).to(dev)
-    whole = deconv2x_cs(x, wt, None, h=6, w=4)
-    monkeypatch.setattr(deconv_module, "MAX_LAUNCH_VOXELS", 3 * 24)  # 3 planes a launch
+def test_deconv2x_cs_refuses_a_call_of_2_30_voxels(dev):
+    """The kernel's voxel indices are 32-bit: a call of 2^30 input voxels
+    is refused before anything is allocated or launched."""
+    x = torch.empty((1, 1, 1, 1 << 30), dtype=torch.bfloat16, device=dev)
+    wt = torch.zeros((1, 1, 2, 2, 2), device=dev)
     before = deconv2x_cs.launches
-    cut = deconv2x_cs(x, wt, None, h=6, w=4)
-    torch.cuda.synchronize()
-    assert deconv2x_cs.launches == before + 4
-    assert torch.equal(cut, whole)
+    with pytest.raises(ValueError, match="2\\^30"):
+        deconv2x_cs(x, wt, None, h=1 << 15, w=1 << 15)
+    assert deconv2x_cs.launches == before
 
 
 def test_deconv2x_cs_resources(dev):
@@ -398,7 +393,8 @@ def test_deconv2x_cs_resources(dev):
     regs, blocks = deconv2x_cs_resources(True, True)
     assert 0 < regs <= 128 and blocks >= 2
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    assert deconv2x_cs_plan(128 * 48, 48, 32, 32, sms=sms).m_blocks == 2 * sms
+    assert deconv2x_cs_plan(128 * 48, 48, 32, 32, x_aligned=True,
+                            sms=sms).m_blocks == 2 * sms
 
 
 def test_deconv2x_cs_kernel_on_a_misaligned_view(dev):

@@ -158,21 +158,35 @@ def test_fast_forward_runs_every_upcat_through_deconv2x_cs(monkeypatch):
 
 
 def test_kernel_weight_layout():
-    """The B operand: w_k[c, 8·o + 4a + 2β + γ] = bf16(w[c, o, a, β, γ]), O
-    zero-padded to a multiple of 32 channels, K-major and contiguous."""
+    """The B operand: w_k[c, 8·o + 4a + 2β + γ] = bf16(w[c, o, a, β, γ]),
+    no padding past O, K-major, contiguous and 16-byte aligned."""
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import kernel_weights
 
     wt = torch.randn(3, 20, 2, 2, 2)
     wk = kernel_weights(wt)
-    assert wk.shape == (3, 8 * 32) and wk.dtype == torch.bfloat16 and wk.is_contiguous()
-    for c, o, a, be, ga in np.ndindex(3, 32, 2, 2, 2):
-        want = wt[c, o, a, be, ga].to(torch.bfloat16) if o < 20 else torch.tensor(0.0)
+    assert wk.shape == (3, 8 * 20) and wk.dtype == torch.bfloat16 and wk.is_contiguous()
+    assert wk.data_ptr() % 16 == 0
+    for c, o, a, be, ga in np.ndindex(3, 20, 2, 2, 2):
+        want = wt[c, o, a, be, ga].to(torch.bfloat16)
         assert float(wk[c, 8 * o + 4 * a + 2 * be + ga]) == float(want)
 
 
+def test_kernel_weights_take_an_aligned_bf16_tensor_as_it_is():
+    """A contiguous bf16 weight is the B operand itself, with no copy; a
+    view that starts off a 16-byte boundary is copied to an aligned one."""
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import kernel_weights
+
+    wt = torch.randn(4, 3, 2, 2, 2).to(torch.bfloat16)
+    assert kernel_weights(wt).data_ptr() == wt.data_ptr()
+    base = torch.randn(1 + 4 * 3 * 8).to(torch.bfloat16)
+    view = base[1:].reshape(4, 3, 2, 2, 2)
+    wk = kernel_weights(view)
+    assert wk.data_ptr() % 16 == 0 and torch.equal(wk, view.reshape(4, 24))
+
+
 # (planes B·D, H, W, O) → (N tiles, M tiles, m_blocks, vec_in, fast_out) on
-# 132 SMs: the four UpCats of the production forward at the stage-2 batch of
-# 128 windows, then the odd shapes of the card tests
+# 132 SMs with x aligned: the four UpCats of the production forward at the
+# stage-2 batch of 128 windows, then the odd shapes of the card tests
 PLANS = [
     ((128 * 6, 6, 4, 128), (4, 288, 66, True, True)),  # upcat_4
     ((128 * 12, 12, 8, 64), (2, 2304, 132, True, True)),  # upcat_3
@@ -191,34 +205,18 @@ PLANS = [
 def test_deconv2x_cs_plan(args, want):
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs_plan
 
-    assert tuple(deconv2x_cs_plan(*args)) == want
+    assert tuple(deconv2x_cs_plan(*args, x_aligned=True, sms=132)) == want
 
 
 def test_deconv2x_cs_plan_of_a_misaligned_input_and_a_huge_call():
-    """A misaligned x stages one voxel at a time; a call whose planes hold
-    more than 2^30 voxels is cut into launches of whole planes."""
-    from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
-        MAX_LAUNCH_VOXELS, deconv2x_cs_plan, planes_per_launch,
-    )
+    """A misaligned x stages one voxel at a time; a call of 2^30 input
+    voxels or more is refused, one voxel fewer is one launch."""
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import MAX_VOXELS, deconv2x_cs_plan
 
-    assert not deconv2x_cs_plan(6, 4, 8, 8, x_aligned=False).vec_in
-    assert deconv2x_cs_plan(6, 4, 8, 8, x_aligned=False).fast_out
-    assert planes_per_launch(48, 32) == MAX_LAUNCH_VOXELS // 1536 > 128 * 48
-    assert planes_per_launch(1 << 14, 1 << 14) == 4
-    assert deconv2x_cs_plan(4, 1 << 14, 1 << 14, 8).m_tiles == 4 * (1 << 28) // 64
-
-
-def test_kernel_weights_are_laid_out_once_per_weight_version():
-    """The wrapper re-lays a weight tensor once and again after an in-place
-    update; another tensor, even with equal values, gets its own."""
-    from delivr_cfos_tpu_torch.ops.deconv2x_cs import _cached_kernel_weights, kernel_weights
-
-    wt = torch.randn(4, 8, 2, 2, 2)
-    first = _cached_kernel_weights(wt)
-    assert _cached_kernel_weights(wt) is first
-    assert torch.equal(first, kernel_weights(wt))
-    wt.mul_(2)
-    again = _cached_kernel_weights(wt)
-    assert again is not first and torch.equal(again, kernel_weights(wt))
-    other = wt.clone()
-    assert _cached_kernel_weights(other) is not again
+    assert not deconv2x_cs_plan(6, 4, 8, 8, x_aligned=False, sms=132).vec_in
+    assert deconv2x_cs_plan(6, 4, 8, 8, x_aligned=False, sms=132).fast_out
+    assert MAX_VOXELS == 1 << 30 > 100 * 128 * 48 * 1536  # the largest UpCat call
+    with pytest.raises(ValueError, match="2\\^30"):
+        deconv2x_cs_plan(4, 1 << 14, 1 << 14, 8, x_aligned=True, sms=132)
+    plan = deconv2x_cs_plan(1, 1, (1 << 30) - 1, 8, x_aligned=True, sms=132)
+    assert plan.m_tiles == 1 << 24 and plan.m_blocks == 264
