@@ -25,12 +25,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              to the same check at the same shape, and times it.
    deconv  — deconv2x_cs against its plain version at the four UpCat shapes
              of the same forward at the same batch, and upcat_1 with a bias:
-             within one bf16 ULP at max(|value|, rms). Times the kernel, the
-             plain version and one cuDNN bf16 F.conv_transpose3d on the input
-             laid out NCDHW beforehand (a yardstick only); each row gives
-             the bound, the fraction of it reached, the grid, the kernel's
-             registers and blocks per SM; a "deconv_sum" line sums the five
-             rows' ms, bound and cuDNN ms.
+             within one bf16 ULP at max(|value|, rms). Times the wrapper as
+             the model calls it (f32 weights, cast on every call), the plain
+             version and one cuDNN bf16 F.conv_transpose3d on the input laid
+             out NCDHW beforehand (a yardstick only): "ms" and "library_ms"
+             are device time (the host queued ahead behind a spin),
+             "call_ms" and "library_call_ms" calls back to back, host time
+             included; each row gives the bound, the fraction of it reached
+             (device time), the grid, the kernel's registers and blocks per
+             SM; a "deconv_sum" line sums the five rows' times and bounds.
 4. model   — full-width fast forward (apply_cs) against the f32 parity
              BasicUNet on the same seeded weights, on volume windows.
 5. stage2  — run_inference on the (192, 480, 384) uint16 half-bright volume
@@ -104,6 +107,7 @@ VOLUME = (192, 480, 384)
 STREAM_VOLUME = (768, 480, 384)  # 15 window z-starts: 4 slabs of 4 rows
 FALLBACK_WINDOW = (100, 100, 60)  # not divisible by 16
 SEED = 0
+SPIN_CYCLES = 50_000_000  # about 25 ms at the card's clock: device_ms's head start
 BAND = 1e-3  # |logit| inside which sums in another order may flip a voxel
 PACKED = 17  # convs of a forward on the packed path: all but the C_in = 1 first
 
@@ -122,6 +126,27 @@ def timed_ms(fn, reps: int = 3) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 10) -> float:
+    """The device's time for one call, without the host's: warm once, queue
+    a spin on the card that outlasts the host's enqueueing of ``reps`` calls,
+    then the mean of the reps by CUDA events. Raises if the card reached the
+    first call before the host had queued the last."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    ahead = not start.query()
+    torch.cuda.synchronize()
+    if not ahead:
+        raise AssertionError("the spin ended before the host had queued the calls")
     return start.elapsed_time(end) / reps
 
 
@@ -332,16 +357,26 @@ def check_deconv(card, name, b, d, h, w, c, o, *, with_bias=False, chunk=16):
         del want
     finite = bool(torch.isfinite(got.float()).all())
     del got
-    # 10 runs: the small UpCats take a fraction of a millisecond
-    ms = timed_ms(lambda: deconv2x_cs(x, wt, bias, h=h, w=w), reps=10)
+    # 10 runs: the small UpCats take a fraction of a millisecond. Each call
+    # gets what the model's UpCat passes, a fresh f32 view of the weights,
+    # so it holds the cast to bf16. ms is the device's time (cast and
+    # kernel); call_ms, calls back to back, holds the wrapper's host time.
+    def call():
+        return deconv2x_cs(x, wt.detach(), bias, h=h, w=w)
+
+    ms, call_ms = device_ms(call, reps=10), timed_ms(call, reps=10)
 
     # yardstick: one cuDNN bf16 transposed conv of the same inputs, laid out
-    # NCDHW beforehand (its output is NCDHW, not the kernel's layout)
+    # NCDHW beforehand (its output is NCDHW, not the kernel's layout), timed
+    # both ways
     x5 = x.reshape(b, d, c, h, w).permute(0, 2, 1, 3, 4).contiguous()
     w5 = wt.to(torch.bfloat16)
     b5 = None if bias is None else bias.to(torch.bfloat16)
-    library_ms = timed_ms(
-        lambda: torch.nn.functional.conv_transpose3d(x5, w5, b5, stride=2), reps=10)
+
+    def library():
+        return torch.nn.functional.conv_transpose3d(x5, w5, b5, stride=2)
+
+    library_ms, library_call_ms = device_ms(library, reps=10), timed_ms(library, reps=10)
     del x5
     # x read once, the output written once, the weights and bias read once
     nbytes = (2.0 * b * d * h * w * (c + 8 * o) + 2.0 * 8 * c * o
@@ -354,8 +389,8 @@ def check_deconv(card, name, b, d, h, w, c, o, *, with_bias=False, chunk=16):
     bms = 1e3 * max(t_ops, t_bytes)
     row = dict(phase="deconv", card=card, case=name + ("/bias" if with_bias else ""),
                b=b, d=d, h=h, w=w, c_in=c, c_out=o, bias=with_bias, max_ulps=ulps,
-               max_abs_err=err, finite=finite, ms=ms, plain_ms=plain_ms,
-               library_ms=library_ms, bound_ms=bms,
+               max_abs_err=err, finite=finite, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+               library_ms=library_ms, library_call_ms=library_call_ms, bound_ms=bms,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                fraction_of_bound=bms / ms, gbytes_per_s=nbytes / ms / 1e6,
                grid=[plan.n_tiles, plan.m_blocks], registers=regs,
@@ -796,7 +831,7 @@ def main() -> int:
     deconv_extra = [check_deconv(smi, n1, batch, d1, h1, w1, c1, o1, with_bias=True)]
     emit(dict(phase="deconv_sum", card=smi, rows=len(deconv_rows + deconv_extra),
               **{k: sum(r[k] for r in deconv_rows + deconv_extra)
-                 for k in ("ms", "bound_ms", "library_ms")}))
+                 for k in ("ms", "call_ms", "bound_ms", "library_ms", "library_call_ms")}))
     torch.cuda.empty_cache()
 
     # --- 4. full-width fast forward vs f32 parity ---------------------------
