@@ -36,7 +36,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
              SM; a "deconv_sum" line sums the five rows' times and bounds.
 4. model   — full-width fast forward (apply_cs) against the f32 parity
              BasicUNet on the same seeded weights, on volume windows.
-5. stage2  — run_inference on the (192, 480, 384) uint16 half-bright volume
+5. stage1  — stage 1 (pipeline/stage01_downsample_mask.py::downsample_mask)
+             on 192 uncompressed uint16 TIFF planes of the (192, 480, 384)
+             volume of phase 6 at the default ratios (4, 15, 15): first
+             without a model (the Otsu branch), whose 8-bit stack gets a
+             seeded scribble mask (bright half 1, empty half 2) for a forest
+             fitted with fit_pixel_classifier (16 trees of depth 8, 20 000
+             samples); then with that .npz on the card (device None) and
+             with device="cpu". Every output file equal byte for byte
+             between the two, except the mask and the files made from it,
+             whose differing voxels are counted and held to MASK_FLIPS of
+             the voxels; seconds by step (decode, downsample, features,
+             forest, zoom, masking) and the peak device memory; the masked
+             volume equal to the raw volume times mask_us.npy. Then
+             predict_mask_probabilities on a seeded (324, 400, 467) 8-bit
+             stack, the stage-1 stack of a (1300, 6000, 7000) raw brain at
+             the default ratios, timed, and its first z-chunk against the
+             CPU run (probabilities and uint8, the same bound). Last, stage
+             2 fast on stage 1's masked_nifti.npy: 18 conv3d_cs (17 packed,
+             1 direct), 17 conv3d_cs_pack and 4 deconv2x_cs launches per
+             forward batch (counts set to 0 just before, read just after),
+             no library convolution in a traced run, positives only inside
+             the mask, and GVox/s.
+6. stage2  — run_inference on the (192, 480, 384) uint16 half-bright volume
              with precision 'auto' (fast on CUDA) and TTA off, then parity;
              checks the kernel launch counts (18 conv3d_cs, of which 17
              packed and 1 direct, 17 conv3d_cs_pack and 4 deconv2x_cs per
@@ -46,23 +68,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
              torch.profiler gives the device time by kernel (phase
              "profile") and shows that no convolution or transposed
              convolution of the library ran, and no conv3d_cs_gather_kernel.
-6. fused   — stage 2 in parity with BasicUNetConfig(fused_in_mish=True) on
+7. fused   — stage 2 in parity with BasicUNetConfig(fused_in_mish=True) on
              the same volume: 18 instance_norm_mish launches per forward
-             batch, no conv3d_cs, binaries equal to phase 5's parity run
+             batch, no conv3d_cs, binaries equal to phase 6's parity run
              wherever |logit| > 1e-3.
-7. in_mish — instance_norm_mish against its plain version at the 18
+8. in_mish — instance_norm_mish against its plain version at the 18
              epilogue shapes of the full-width parity forward at the parity
              window batch in f32 (rtol 1e-4, atol 1e-5), and at the level-0
              and level-4 shapes in bf16 (one ULP at max(|value|, rms)).
              Times the kernel, the plain version and F.instance_norm +
              F.mish (a yardstick only; the port never calls them).
-8. fallback — fast mode on 4 windows of (100, 100, 60), which do not divide
+9. fallback — fast mode on 4 windows of (100, 100, 60), which do not divide
              by 16, with fused_in_mish: the bf16 forward on the bf16 kernel,
              against the f32 parity forward with phase 4's bound; then the
              bf16 kernel against its plain version (one ULP) at the 18
              epilogue shapes that forward gave it (phase "in_mish" rows and
              their "in_mish_fallback" sum).
-9. stream  — a (768, 480, 384) disk memmap: stage 2 fast streamed in 4 slabs
+10. stream — a (768, 480, 384) disk memmap: stage 2 fast streamed in 4 slabs
              (LOAD_ALL_RAM false), then in device memory; sigmoid within
              1e-5, binaries equal outside the 1e-3 logit band; then a resume
              from a hand-written sidecar at slab 2 over corrupted outputs,
@@ -71,13 +93,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              conv3d_cs_pack and 4 deconv2x_cs launches per 18 conv3d_cs in
              both; one more streamed run under
              torch.profiler gives the device's idle share.
-10. stage3 — count_blobs on phase 5's fast binaries.npy in its three
+11. stage3 — count_blobs on phase 6's fast binaries.npy in its three
              branches (in RAM native, in RAM slab-parallel, out of core): the
              CSV bytes, cache names and labels equal across branches, on the
              native engine; label_volume_device on the card over the same
              binaries equal to the host labels (seconds and rounds); stage 3
-             out of core on phase 9's streamed binaries.
-11. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
+             out of core on phase 10's streamed binaries.
+12. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
              conv3d_cs_direct, conv3d_cs_pack, instance_norm_mish,
              deconv2x_cs), the nvidia-smi line, then the result line.
 
@@ -110,6 +132,10 @@ SEED = 0
 SPIN_CYCLES = 50_000_000  # about 25 ms at the card's clock: device_ms's head start
 BAND = 1e-3  # |logit| inside which sums in another order may flip a voxel
 PACKED = 17  # convs of a forward on the packed path: all but the C_in = 1 first
+# stage 1's 8-bit stack of a (1300, 6000, 7000) raw brain at the default
+# ratios (4, 15, 15): ceil(1300 / 4) - 1, ceil(6000 / 15), ceil(7000 / 15)
+BRAIN_STACK = (324, 400, 467)
+MASK_FLIPS = 1e-4  # share of voxels in which the card's mask may differ from the CPU's
 
 
 def emit(obj) -> None:
@@ -583,7 +609,7 @@ def check_in_mish(card, name, n, c, d, h, w, dtype, chunk=8):
 
 
 def stream_phase(card, sd, dev):
-    """Phase 9: stage 2 fast streamed from a disk memmap, then in device
+    """Phase 10: stage 2 fast streamed from a disk memmap, then in device
     memory on the same file, then resumed from a hand-written sidecar.
     Returns the streamed binaries."""
     from delivr_cfos_tpu_torch.engine import streaming
@@ -699,6 +725,199 @@ def stream_phase(card, sd, dev):
     return bin_st
 
 
+def stage1_config(raw, out, model):
+    """Stage 1 over ``raw``'s brain into ``out`` with the forest at ``model``
+    (the Otsu fallback where that file does not exist), default ratios."""
+    from delivr_cfos_tpu_torch.config import PipelineConfig
+
+    return PipelineConfig.from_dict({
+        "raw_location": raw,
+        "mask_detection": {"output_location": out + os.sep, "ilastik_model": model,
+                           "mask_with_Ilastik": True},
+        "blob_detection": {"window_dimensions": dict(zip(
+            ("window_dim_0", "window_dim_1", "window_dim_2"), ROI))},
+        "FLAGS": {"ABSPATHS": True},
+    })
+
+
+def tree_files(root):
+    """{path relative to ``root``: bytes} of every file under ``root``."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            with open(os.path.join(d, n), "rb") as f:
+                out[os.path.relpath(os.path.join(d, n), root)] = f.read()
+    return out
+
+
+def read_output(path):
+    """The array in one stage-1 output file."""
+    from delivr_cfos_tpu_torch.utils.io.tiff import read_tiff
+    from delivr_cfos_tpu_torch.utils.io.v3draw import read_v3draw
+
+    if path.endswith(".npy"):
+        return np.load(path)
+    return read_v3draw(path) if path.endswith(".v3draw") else read_tiff(path)
+
+
+def brain_stack():
+    """A seeded 8-bit stack of a downsampled brain at BRAIN_STACK: an
+    ellipsoid of bright noise in an empty volume, as make_volume's bright
+    half in its empty one."""
+    rng = np.random.default_rng(SEED)
+    z, y, x = BRAIN_STACK
+    st = np.zeros(BRAIN_STACK, np.uint8)
+    zz, yy, xx = np.ogrid[:z, :y, :x]
+    inside = (((zz - z / 2) / (z / 2.2)) ** 2 + ((yy - y / 2) / (y / 2.3)) ** 2
+              + ((xx - x / 2) / (x / 2.3)) ** 2) < 1
+    st[inside] = (120 + rng.random(int(inside.sum()), np.float32) * 100).astype(np.uint8)
+    return st
+
+
+def stage1_phase(card, vol, sd, batch, dev):
+    """Phase 5: stage 1 on the card against the CPU, the mask model at a real
+    brain's size, and stage 2 fast on stage 1's output."""
+    from delivr_cfos_tpu_torch.models.pixel_classifier import (
+        fit_pixel_classifier, predict_mask_probabilities, predict_probabilities, save_model,
+    )
+    from delivr_cfos_tpu_torch.native.build import native_available
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack, conv3d_cs_packed,
+    )
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
+    from delivr_cfos_tpu_torch.pipeline.stage01_downsample_mask import downsample_mask
+    from delivr_cfos_tpu_torch.utils.device import StepSeconds
+    from delivr_cfos_tpu_torch.utils.io.tiff import read_tiff, write_tiff
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "raw")
+        os.makedirs(os.path.join(raw, "brain"))
+        for z in range(vol.shape[0]):
+            write_tiff(os.path.join(raw, "brain", f"Z{z:04d}.tif"), vol[z])
+        model_path = os.path.join(tmp, "forest.npz")
+
+        # the Otsu branch (no model file yet) gives the phase's own 8-bit stack
+        t0 = time.perf_counter()
+        downsample_mask(stage1_config(raw, os.path.join(tmp, "otsu"), model_path), "brain")
+        sec_otsu = time.perf_counter() - t0
+        st8 = read_tiff(os.path.join(tmp, "otsu", "brain", "stack_resampled_8bit.tif"))
+        rng = np.random.default_rng(SEED)
+        bright = np.zeros(st8.shape, bool)
+        bright[:, : -(-st8.shape[1] // 2)] = True  # make_volume's bright low-y half
+        labels = np.where(rng.random(st8.shape) < 0.1, np.where(bright, 1, 2), 0)
+        t0 = time.perf_counter()
+        model = fit_pixel_classifier([st8], [labels.astype(np.uint8)], max_samples=20_000,
+                                     seed=SEED, device=dev)
+        sec_fit = time.perf_counter() - t0
+        save_model(model_path, model)
+
+        # the forest branch: on the card as a user calls it, then on the CPU
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        steps = downsample_mask(stage1_config(raw, os.path.join(tmp, "in"), model_path),
+                                "brain")
+        sec_card = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        cpu_steps = downsample_mask(stage1_config(raw, os.path.join(tmp, "cpu"), model_path),
+                                    "brain", device="cpu")
+        sec_cpu = time.perf_counter() - t0
+
+        card_files = tree_files(os.path.join(tmp, "in"))
+        cpu_files = tree_files(os.path.join(tmp, "cpu"))
+        from_mask = ("_mask.tif", "mask_us.npy", "masked")
+        differing, flips = [], {}
+        for name in sorted(set(card_files) | set(cpu_files)):
+            if card_files.get(name) == cpu_files.get(name):
+                continue
+            differing.append(name)
+            if any(k in name for k in from_mask) and name in card_files \
+                    and name in cpu_files:
+                a = read_output(os.path.join(tmp, "in", name))
+                b = read_output(os.path.join(tmp, "cpu", name))
+                flips[name] = int((a != b).sum()) if a.shape == b.shape else -1
+        mask_us = np.load(os.path.join(tmp, "in", "brain", "mask_us.npy"))
+        nii_path = os.path.join(tmp, "in", "brain", "masked_niftis", "masked_nifti.npy")
+        nii = np.load(nii_path)
+        masked_ok = nii.shape == (1, 1, *VOLUME) and np.array_equal(nii[0, 0], vol * mask_us)
+
+        # the mask model at a real brain's size
+        big = brain_stack()
+        timer = StepSeconds(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        big255 = predict_mask_probabilities(big, model_path, device=dev, timer=timer)
+        sec_big = time.perf_counter() - t0
+        peak_big = torch.cuda.max_memory_allocated() / 2**30
+        head = big[:48]  # the first z-chunk of 32 planes and its 16-plane halo
+        p_card = predict_probabilities(head, model, device=dev)[:32]
+        p_cpu = predict_probabilities(head, model, device="cpu")[:32]
+        u8_cpu = predict_mask_probabilities(head, model_path, device="cpu")[:32]
+
+        # stage 2 fast on stage 1's masked_nifti.npy
+        masked = nii[0, 0]
+        n_active, n_batches = forward_batches(masked, batch, dev)
+        conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
+        conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_gather.launches = 0
+        sec_s2, peak_s2, bin_s2, sig_s2 = stage2(tmp, "fast_s1", sd)
+        counts = (conv3d_cs.launches, conv3d_cs_packed.launches, conv3d_cs_direct.launches,
+                  conv3d_cs_gather.launches, conv3d_cs_pack.launches, deconv2x_cs.launches)
+        with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA,
+        ]) as prof:
+            sec_traced, _, _, _ = stage2(tmp, "fast_s1_traced", sd)
+        s1_profile = profile_summary(prof, sec_traced)
+        emit(dict(s1_profile, card=card, run="stage2 fast on stage 1's output"))
+        del prof
+
+    n_vox = int(np.prod(VOLUME))
+    big_flips = int((p_card != p_cpu).sum())
+    emit(dict(phase="stage1", card=card, raw=list(VOLUME), ratios=[4, 15, 15],
+              downsampled=list(st8.shape), tiff_codec_native=native_available("tiff_codec"),
+              seconds_otsu_run=sec_otsu, seconds_fit=sec_fit, seconds=sec_card,
+              seconds_by_step=steps, peak_gib=peak, seconds_cpu=sec_cpu,
+              seconds_by_step_cpu=cpu_steps, files=len(card_files),
+              files_differing=differing, voxels_differing=flips,
+              mask_voxels=int(mask_us.sum()), masked_equals_raw_times_mask=bool(masked_ok),
+              brain_stack=list(BRAIN_STACK), brain_seconds=sec_big,
+              brain_seconds_by_step=dict(timer), brain_peak_gib=peak_big,
+              brain_gvox_per_s=int(np.prod(BRAIN_STACK)) / sec_big / 1e9,
+              brain_foreground=float((big255 >= 125).mean()),
+              chunk_voxels=int(p_card.size), chunk_voxels_differing=big_flips,
+              chunk_max_abs_err=float(np.abs(p_card - p_cpu).max()),
+              chunk_uint8_differing=int((big255[:32] != u8_cpu).sum())))
+    conv, packed, direct, gathered, pack, deconv = counts
+    emit(dict(phase="stage1_stage2", card=card, volume=list(VOLUME), batch=batch,
+              active_windows=n_active, forward_batches=n_batches, kernel_launches=conv,
+              conv3d_cs_packed_launches=packed, conv3d_cs_direct_launches=direct,
+              conv3d_cs_gather_launches=gathered, conv3d_cs_pack_launches=pack,
+              deconv2x_cs_launches=deconv, seconds=sec_s2,
+              gvox_per_s=n_vox / sec_s2 / 1e9, peak_gib=peak_s2,
+              positives=int(bin_s2.sum()), library_conv=s1_profile["library_conv"]))
+    bound = int(MASK_FLIPS * mask_us.size)
+    if any(not any(k in name for k in from_mask) for name in differing):
+        raise AssertionError(f"stage 1 files differ between the card and the CPU: {differing}")
+    if any(v < 0 or v > bound for v in flips.values()):
+        raise AssertionError(f"stage 1's mask differs from the CPU's beyond {bound}: {flips}")
+    if not (mask_us.any() and masked_ok):
+        raise AssertionError("stage 1's masked volume is empty or not raw × mask_us")
+    if big_flips > MASK_FLIPS * p_card.size or not np.isfinite(p_card).all():
+        raise AssertionError(f"{big_flips} probabilities of the first chunk differ from the CPU")
+    if n_batches == 0 or (conv, packed, direct, gathered, pack, deconv) != (
+            18 * n_batches, PACKED * n_batches, n_batches, 0, PACKED * n_batches,
+            4 * n_batches):
+        raise AssertionError(f"stage 2 on stage 1's output: launches {counts} for "
+                             f"{n_batches} forward batches")
+    if s1_profile["library_conv"] or s1_profile["library_transposed_conv"]:
+        raise AssertionError("stage 2 on stage 1's output ran a library convolution")
+    if not (np.isfinite(sig_s2).all() and bin_s2.shape == VOLUME
+            and not bin_s2[masked == 0].any()):
+        raise AssertionError("stage 2's binaries on stage 1's output are wrong")
+
+
 CC_BRANCHES = {  # count_blobs branch: (FLAGS.LOAD_ALL_RAM, cc_workers)
     "ram_native": (True, 1), "ram_slabs": (True, 4), "out_of_core": (False, 0),
 }
@@ -728,7 +947,7 @@ def count_blobs_run(blob, post, brain, shape, load_all_ram, workers):
 
 
 def stage3_phase(card, bin_mem, bin_stream, dev):
-    """Phase 10: stage 3 on the binaries of phases 5 and 9, and the device
+    """Phase 11: stage 3 on the binaries of phases 6 and 10, and the device
     labeler against the host engine."""
     from delivr_cfos_tpu_torch.native.build import native_available
     from delivr_cfos_tpu_torch.ops.connected_components import label_volume_device
@@ -857,7 +1076,11 @@ def main() -> int:
     del xw, fast, parity
     torch.cuda.empty_cache()
 
-    # --- 5. stage 2 through run_inference, and 6. fused parity ---------------
+    # --- 5. stage 1, and stage 2 on its output ------------------------------
+    stage1_phase(smi, vol, sd, batch, dev)
+    torch.cuda.empty_cache()
+
+    # --- 6. stage 2 through run_inference, and 7. fused parity ---------------
     n_active, n_batches = forward_batches(vol, batch, dev)
     parity_batch = auto_batch_size(ROI, BasicUNetConfig(), vol.nbytes, device=dev)
     _, n_batches_par = forward_batches(vol, parity_batch, dev)
@@ -952,14 +1175,14 @@ def main() -> int:
         raise AssertionError("fused binaries differ from parity outside the logit band")
     del sig_fast, bin_par, sig_par, bin_fused, sig_fused
 
-    # --- 7. instance_norm_mish vs plain at the fused forward's shapes -------
+    # --- 8. instance_norm_mish vs plain at the fused forward's shapes -------
     f32_rows = [check_in_mish(smi, n, parity_batch, co, d, h, w, torch.float32)
                 for n, _, _, _, co, d, h, w in shapes]
     bf16_rows = [check_in_mish(smi, f"{n}/bf16", batch, co, d, h, w, torch.bfloat16)
                  for n, lvl, _, _, co, d, h, w in (shapes[1], shapes[9])]
     torch.cuda.empty_cache()
 
-    # --- 8. fast fallback: bf16 forward with the fused epilogue -------------
+    # --- 9. fast fallback: bf16 forward with the fused epilogue -------------
     fz, fy, fx = FALLBACK_WINDOW
     wins = np.stack([vol[z:z + fz, y:y + fy, x:x + fx] for z, y, x in
                      [(0, 0, 0), (40, 60, 100), (90, 130, 200), (92, 140, 324)]])
@@ -1009,10 +1232,10 @@ def main() -> int:
               bound_ms=sum(r["bound_ms"] for r in fb_rows)))
     torch.cuda.empty_cache()
 
-    # --- 9. out-of-core streaming stage 2 against in device memory ---------
+    # --- 10. out-of-core streaming stage 2 against in device memory ---------
     bin_stream = stream_phase(smi, sd, dev)
 
-    # --- 10. stage 3 on the binaries of phases 5 and 9 -----------------------
+    # --- 11. stage 3 on the binaries of phases 6 and 10 ----------------------
     stage3_phase(smi, bin_fast, bin_stream, dev)
     del bin_fast, bin_stream
 

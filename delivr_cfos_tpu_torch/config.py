@@ -23,7 +23,47 @@ import os
 from dataclasses import dataclass, field
 from typing import Any
 
-_WORK_PACKAGES = ("blob_detection", "postprocessing")  # the ported stages' sections
+# the ported stages' sections
+_WORK_PACKAGES = ("mask_detection", "blob_detection", "postprocessing")
+
+
+@dataclass(frozen=True)
+class DownsampleSteps:
+    """Voxel sizes driving the anisotropic downsample (config.json:9-16)."""
+
+    original_um_x: float = 1.62
+    original_um_y: float = 1.62
+    original_um_z: float = 6.0
+    downsample_um_x: float = 25.0
+    downsample_um_y: float = 25.0
+    downsample_um_z: float = 25.0
+
+    @property
+    def ratios_zyx(self) -> tuple[int, int, int]:
+        """Integer downsampling ratios (z, y, x), rounded as the reference does
+        (reference: downsample/downsample_and_mask.py:161-163)."""
+        return (
+            round(self.downsample_um_z / self.original_um_z),
+            round(self.downsample_um_y / self.original_um_y),
+            round(self.downsample_um_x / self.original_um_x),
+        )
+
+
+@dataclass(frozen=True)
+class MaskDetectionConfig:
+    ilastik_location: str = ""
+    ilastik_model: str = ""
+    teraconverter_location: str = ""
+    output_location: str = ""
+    downsample_steps: DownsampleSteps = field(default_factory=DownsampleSteps)
+    mask_with_Ilastik: bool = True
+    simple_threshold_value: int = 250
+    # framework extension — host ingest parallelism for stage 1 (TIFF
+    # decode-ahead of the device downsample; thread-pooled per-plane
+    # masking writes). 0 = one worker per host core (capped at 16). The
+    # decoders and deflate writers release the GIL, so this scales with the
+    # host's cores.
+    ingest_threads: int = 0
 
 
 @dataclass(frozen=True)
@@ -111,6 +151,7 @@ class Flags:
 class PipelineConfig:
     raw_location: str = ""
     output_location: str = ""
+    mask_detection: MaskDetectionConfig = field(default_factory=MaskDetectionConfig)
     blob_detection: BlobDetectionConfig = field(default_factory=BlobDetectionConfig)
     postprocessing: PostprocessingConfig = field(default_factory=PostprocessingConfig)
     FLAGS: Flags = field(default_factory=Flags)
@@ -127,6 +168,11 @@ class PipelineConfig:
         cfg = PipelineConfig(
             raw_location=raw.get("raw_location", ""),
             output_location=raw.get("output_location", ""),
+            mask_detection=_build(
+                MaskDetectionConfig,
+                raw.get("mask_detection", {}),
+                nested={"downsample_steps": DownsampleSteps},
+            ),
             blob_detection=_build(
                 BlobDetectionConfig,
                 raw.get("blob_detection", {}),

@@ -12,7 +12,6 @@ import numpy as np
 import pytest
 from scipy import ndimage
 
-from delivr_cfos_tpu.native import cc_label_native as jax_cc_label_native
 from delivr_cfos_tpu.ops import connected_components as jcc
 from delivr_cfos_tpu_torch.native.build import native_available
 from delivr_cfos_tpu_torch.native.cc import cc_label_native, cc_statistics_native
@@ -197,12 +196,21 @@ def native():
     (0.97, (50, 50, 50), 1),
 ])
 def test_native_labeling_matches_scipy_and_jax(native, threshold, shape, seed):
+    """The port's C++ union-find against the port's scipy host engine and
+    the JAX package's host engine (``jcc.label_volume_host``, scipy).
+
+    The JAX package's own native library is not called: it is built
+    straight onto its final path, so a test worker can load a file that
+    another worker's linker is still writing and then lose that library for
+    the rest of its life. JAX native against scipy is held by
+    tests/test_native_cc.py; port host against JAX host by
+    test_host_engine_matches_jax."""
     vol = _noise(shape, threshold, seed)
     ln, nn = cc_label_native(vol)
     lh, nh = label_volume_host(vol)
     assert nn == nh
     np.testing.assert_array_equal(ln, lh)
-    lj, nj = jax_cc_label_native(vol)
+    lj, nj = jcc.label_volume_host(vol)
     assert nj == nn
     np.testing.assert_array_equal(lj, ln)
 

@@ -98,13 +98,14 @@ def test_run_inference_matches_jax(brain):
 
 def test_config_parses_like_the_jax_package(brain):
     raw = brain("cfg/", precision="fast", spatial_shards=1)
-    raw["mask_detection"] = {"output_location": "masks/"}  # a section not ported
+    raw["mask_detection"] = {"output_location": "masks/", "ingest_threads": 3}
     ours, theirs = PipelineConfig.from_dict(raw), JaxPipelineConfig.from_dict(raw)
     assert dataclasses.asdict(ours.blob_detection) == {
         k: v for k, v in dataclasses.asdict(theirs.blob_detection).items()
         if k != "dcn_slices"
     }
     assert dataclasses.asdict(ours.FLAGS) == dataclasses.asdict(theirs.FLAGS)
+    assert dataclasses.asdict(ours.mask_detection) == dataclasses.asdict(theirs.mask_detection)
     assert ours.blob_detection.window_dimensions.zyx == (16, 16, 16)
 
 
@@ -146,7 +147,8 @@ def test_cuda_requested_without_a_card_raises(brain):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """In a fresh interpreter: tests/conftest.py has imported JAX here."""
+    """In a fresh interpreter: tests/conftest.py has imported JAX here. Stages
+    1-3, their modules, and chip_smoke.py."""
     code = (
         "import sys\n"
         "import delivr_cfos_tpu_torch.pipeline.stage02_inference\n"
@@ -157,6 +159,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import delivr_cfos_tpu_torch.pipeline.stage03_count_blobs\n"
         "import delivr_cfos_tpu_torch.ops.connected_components\n"
         "import delivr_cfos_tpu_torch.native.cc\n"
+        "import delivr_cfos_tpu_torch.pipeline.stage01_downsample_mask\n"
+        "import delivr_cfos_tpu_torch.models.ilastik_import\n"
+        "import delivr_cfos_tpu_torch.native.tiff\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'delivr_cfos_tpu' or m.startswith('delivr_cfos_tpu.')]\n"
