@@ -99,7 +99,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
              native engine; label_volume_device on the card over the same
              binaries equal to the host labels (seconds and rounds); stage 3
              out of core on phase 10's streamed binaries.
-12. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
+12. stage4 — stage 4 (pipeline/stage04_atlas_align.py) through its entry
+             point on phase 5's v3draw and resampled TIFF and phase 11's CSV,
+             on the card and on the CPU, in three modes: fallback (files
+             equal byte for byte), landmarks (seeded marker files; cells
+             within STAGE4_TOL) and template (the synthetic atlas of
+             registration/validate.py at (228, 160, 264), written as .nrrd,
+             the default config). Stage 1's image of the test volume is a
+             noise block with no counterpart in the atlas, so that template
+             run has no answer to agree on: it is printed with how far one
+             grey level at one voxel moves the CPU's own cells, and the
+             card is held to the CPU (STAGE4_TOL) and to the truth on the
+             same layout and cells with a quarter-size brain of known
+             transform. Then a (324, 400, 467) stack made from the atlas
+             through a known rotation, scale, translation and FFD is
+             registered twice on the card through resolve_registration
+             (default config) and 1e6 cells warped: seconds by step, peak
+             GiB, point error and region-count F1 against the truth (the
+             acceptance bounds), the two runs equal to the bit; and ten
+             steps each of the race's level, the finest affine level and
+             the FFD under torch.profiler (busy share, launches a step).
+13. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
              conv3d_cs_direct, conv3d_cs_pack, instance_norm_mish,
              deconv2x_cs), the nvidia-smi line, then the result line.
 
@@ -109,6 +129,7 @@ power limit (the "card" key).
 
 from __future__ import annotations
 
+import io
 import json
 import math
 import os
@@ -136,6 +157,16 @@ PACKED = 17  # convs of a forward on the packed path: all but the C_in = 1 first
 # ratios (4, 15, 15): ceil(1300 / 4) - 1, ceil(6000 / 15), ceil(7000 / 15)
 BRAIN_STACK = (324, 400, 467)
 MASK_FLIPS = 1e-4  # share of voxels in which the card's mask may differ from the CPU's
+STAGE4_INPUTS = ("stack_masked_downsampled.v3draw", "stack_resampled.tif")
+ATLAS = (228, 160, 264)  # the 50 µm atlas grid, (z, y, x)
+# atlas voxels: the card's warped cells against the CPU's in the landmark and
+# template modes (TEMPLATE_TOL of tests/test_torch_stage04.py, port against JAX)
+STAGE4_TOL = 0.01
+BRAIN_POINTS = 1_000_000  # cells warped at the brain's size
+# recovery bounds of the affine+FFD acceptance case
+# (tests/test_registration_acceptance.py:107-108)
+POINT_ERROR_MEAN = 1.5
+REGION_F1 = 0.93
 
 
 def emit(obj) -> None:
@@ -916,6 +947,8 @@ def stage1_phase(card, vol, sd, batch, dev):
     if not (np.isfinite(sig_s2).all() and bin_s2.shape == VOLUME
             and not bin_s2[masked == 0].any()):
         raise AssertionError("stage 2's binaries on stage 1's output are wrong")
+    # what stage 4 reads of the card run's output
+    return {name: card_files[os.path.join("brain", name)] for name in STAGE4_INPUTS}
 
 
 CC_BRANCHES = {  # count_blobs branch: (FLAGS.LOAD_ALL_RAM, cc_workers)
@@ -991,6 +1024,291 @@ def stage3_phase(card, bin_mem, bin_stream, dev):
         raise AssertionError("label_volume_device disagrees with the host engine")
     if first[3] < 2 or n_st < 2:
         raise AssertionError("stage 3 found fewer than two components: no CSV rows")
+    return first[1]
+
+
+def stage4_run(root, mask, tag, entry_csv, device, **atlas_alignment):
+    """run_registration_and_point_warp on the stage-1 files under ``mask``
+    into ``tag``-named outputs under ``root``: (seconds, seconds by step,
+    {name: bytes} of the SWC and CSV files, transform.npz's arrays, the
+    collection CSV's (x, y, z) rows)."""
+    from delivr_cfos_tpu_torch.config import PipelineConfig
+    from delivr_cfos_tpu_torch.pipeline.stage04_atlas_align import (
+        run_registration_and_point_warp,
+    )
+
+    aa = dict(output_location=os.path.join(root, tag, "out"),
+              collection_folder=os.path.join(root, tag, "collection"), **atlas_alignment)
+    cfg = PipelineConfig.from_dict({"mask_detection": {"output_location": mask},
+                                    "atlas_alignment": aa, "FLAGS": {"ABSPATHS": True}})
+    t0 = time.perf_counter()
+    steps = run_registration_and_point_warp(cfg, entry_csv, device=device)
+    seconds = time.perf_counter() - t0
+    files = tree_files(aa["output_location"])
+    with np.load(io.BytesIO(files.pop(os.path.join("brain", "transform.npz")))) as tr:
+        arrays = {k: tr[k] for k in tr.files}
+    files.update({"collection/" + k: v
+                  for k, v in tree_files(aa["collection_folder"]).items()})
+    csv = [v for k, v in files.items() if k.startswith("collection/")][0].decode()
+    rows = [line.split(" ") for line in csv.splitlines()[2:]]
+    xyz = np.array([[float(v) for v in r[2:5]] for r in rows], np.float64).reshape(-1, 3)
+    return seconds, steps, files, arrays, xyz
+
+
+def write_stage1_files(mask, files):
+    """Stage 1's output layout for brain "brain" under ``mask``."""
+    os.makedirs(os.path.join(mask, "brain"))
+    for name, data in files.items():
+        with open(os.path.join(mask, "brain", name), "wb") as f:
+            f.write(data)
+
+
+def marker_files(root):
+    """Brain-space landmarks (Vaa3D .marker) and their atlas-space partners
+    (z,y,x CSV) through a seeded affine near the fallback's scale."""
+    rng = np.random.default_rng(SEED)
+    src = rng.uniform(0, 24, (12, 3)).round(3)
+    A = np.array([[4.8, 0.12, -0.05, 1.3], [0.08, 5.1, 0.2, -2.1], [-0.04, 0.15, 9.9, 0.7]])
+    dst = src @ A[:, :3].T + A[:, 3]
+    brain, atlas = os.path.join(root, "brain.marker"), os.path.join(root, "atlas.csv")
+    with open(brain, "w") as f:
+        f.write("##x,y,z,radius,shape,name,comment\n")
+        f.write("".join(f"{x + 1},{y + 1},{z + 1},1,1,L,\n" for z, y, x in src))
+    with open(atlas, "w") as f:
+        f.write("z,y,x\n" + "".join(f"{z},{y},{x}\n" for z, y, x in dst))
+    return brain, atlas
+
+
+def brain_transform(atlas_shape, stack_shape, dev):
+    """The known fixed→atlas transform of a brain stack: the acceptance
+    tests' 0.12 rad rotation times the stack's per-axis scale onto the atlas
+    box, a translation of a few atlas voxels, and a spacing-16 FFD with
+    controls uniform in ±1.6 atlas voxels
+    (tests/test_registration_acceptance.py:35-49,80-84)."""
+    from delivr_cfos_tpu_torch.registration.bspline import BSplineField
+    from delivr_cfos_tpu_torch.registration.validate import affine_ffd_transform_fn
+
+    th = 0.12
+    rot = np.array([[1, 0, 0], [0, np.cos(th), -np.sin(th)], [0, np.sin(th), np.cos(th)]])
+    A = np.zeros((3, 4), np.float32)
+    A[:, :3] = rot @ np.diag([a / b for a, b in zip(atlas_shape, stack_shape)])
+    A[:, 3] = [2.0, -1.5, 3.0]
+    field = BSplineField.zeros(stack_shape, spacing=16.0)
+    field.ctrl = np.random.default_rng(SEED + 5).uniform(
+        -1.6, 1.6, field.ctrl.shape).astype(np.float32)
+    return A, field, affine_ffd_transform_fn(A, field, dev)
+
+
+def known_brain(atlas_shape, stack_shape, dev):
+    """The synthetic atlas and a brain stack made from it through
+    brain_transform: (atlas, labels, fixed, fixed's labels, transform fn)."""
+    from delivr_cfos_tpu_torch.registration.validate import (
+        apply_transform_volume, make_synthetic_atlas,
+    )
+
+    atlas, labels = make_synthetic_atlas(atlas_shape, n_regions=12, seed=SEED)
+    _, _, tf = brain_transform(atlas_shape, stack_shape, dev)
+    fixed = apply_transform_volume(atlas, stack_shape, tf, device=dev)
+    labels_fixed = np.rint(apply_transform_volume(
+        labels.astype(np.float32), stack_shape, tf, device=dev)).astype(np.int32)
+    return atlas, labels, fixed, labels_fixed, tf
+
+
+def chain_row(card_run, cpu_run):
+    """The card's stage-4 outputs against the CPU's."""
+    (sec, steps, files, arrays, xyz), (sec_cpu, steps_cpu, files_cpu, arrays_cpu,
+                                       xyz_cpu) = card_run, cpu_run
+    return dict(
+        registration_mode=bytes(arrays["mode"]).decode(),
+        cpu_registration_mode=bytes(arrays_cpu["mode"]).decode(),
+        cells=len(xyz), cpu_cells=len(xyz_cpu), files=len(files),
+        files_equal=files == files_cpu,
+        files_differing=sorted(k for k in files if files[k] != files_cpu.get(k)),
+        arrays_equal=all(arrays[k].tobytes() == arrays_cpu[k].tobytes() for k in arrays),
+        max_coordinate_diff=float(np.abs(xyz - xyz_cpu).max()) if len(xyz) else 0.0,
+        finite=bool(np.isfinite(xyz).all() and np.isfinite(xyz_cpu).all()),
+        fixed_shape=arrays["fixed_shape"].tolist(),
+        cpu_fixed_shape=arrays_cpu["fixed_shape"].tolist(),
+        seconds=sec, seconds_by_step=steps, seconds_cpu=sec_cpu,
+        seconds_by_step_cpu=steps_cpu)
+
+
+def stage4_profiles(card, fixed, atlas, affine, dev, steps=10):
+    """Where a registration step's time goes at the brain's size: ``steps``
+    Adam steps of the race's level (4), of the finest affine level and of
+    the FFD, each once untraced and once under torch.profiler."""
+    from delivr_cfos_tpu_torch.registration.affine import _optimize_level, _pyramid
+    from delivr_cfos_tpu_torch.registration.bspline import BSplineField, _optimize_ffd
+    from delivr_cfos_tpu_torch.utils.device import upload
+
+    f, m = upload(fixed, dev), upload(atlas, dev)
+    f4, m4 = _pyramid(f, 4), _pyramid(m, 4)
+    A = torch.as_tensor(affine, device=dev)
+    A4 = A.clone()
+    A4[:, 3] /= 4
+    ctrl = torch.zeros(BSplineField.zeros(fixed.shape, 16.0).ctrl.shape, device=dev)
+    cases = {
+        "race level 4": lambda: _optimize_level(f4, m4, A4, 0.02, steps),
+        "affine level 1": lambda: _optimize_level(f, m, A, 0.004, steps),
+        "ffd level 1": lambda: _optimize_ffd(f, m, A, ctrl, tuple(f.shape), 16.0, 0.3, 1e-3,
+                                             steps),
+    }
+    for name, run in cases.items():
+        run()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA,
+        ]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        row = profile_summary(prof, wall, top=6)
+        launches = sum(ev.count for ev in prof.key_averages()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA)
+        emit(dict(phase="stage4_profile", card=card, run=name, steps=steps, wall_s=wall,
+                  device_busy_ms=row["device_busy_ms"],
+                  device_idle_share=row["device_idle_share"],
+                  device_launches_per_step=launches / steps, top=row["top"]))
+        del prof
+
+
+def stage4_phase(card, s1_files, csv_text, dev):
+    """Phase 12: stage 4 through its entry point on the files of phases 5
+    and 11 in its three modes, on the card and on the CPU, and on a brain of
+    known transform in the same layout; then registration at a brain's stack
+    size against a known transform, twice on the card."""
+    from delivr_cfos_tpu_torch.config import AtlasAlignmentConfig
+    from delivr_cfos_tpu_torch.pipeline.stage04_atlas_align import (
+        crop_trailing_zeros, parse_blob_csv, resolve_registration,
+    )
+    from delivr_cfos_tpu_torch.registration.bspline import warp_points
+    from delivr_cfos_tpu_torch.registration.validate import (
+        acceptance_metrics, affine_ffd_transform_fn, affine_transform_fn, sample_brain_points,
+    )
+    from delivr_cfos_tpu_torch.utils.device import StepSeconds
+    from delivr_cfos_tpu_torch.utils.io.nrrd import write_nrrd
+    from delivr_cfos_tpu_torch.utils.io.tiff import write_tiff_stack
+    from delivr_cfos_tpu_torch.utils.io.v3draw import read_v3draw, write_v3draw
+
+    with tempfile.TemporaryDirectory() as root:
+        mask = os.path.join(root, "mask")
+        write_stage1_files(mask, s1_files)
+        entry_csv = os.path.join(root, f"{VOLUME}_brain.csv")
+        with open(entry_csv, "wb") as f:
+            f.write(csv_text)
+        t0 = time.perf_counter()
+        atlas, labels, fixed, labels_fixed, tf_true = known_brain(ATLAS, BRAIN_STACK, dev)
+        sec_make = time.perf_counter() - t0
+        template = os.path.join(root, "atlas.nrrd")
+        write_nrrd(template, atlas)
+        brain_lm, atlas_lm = marker_files(root)
+
+        # (a) the chain through the entry point, on the card and on the CPU
+        modes = {"fallback": {}, "landmarks": dict(
+            landmarks_hemisphere=True, landmarks_file=brain_lm, atlas_landmarks_file=atlas_lm),
+            "template": dict(template_file=template)}
+        runs = {mode: (stage4_run(root, mask, f"{mode}_card", entry_csv, None, **aa),
+                       stage4_run(root, mask, f"{mode}_cpu", entry_csv, "cpu", **aa))
+                for mode, aa in modes.items()}
+        # stage 1's image is a block of noise with no counterpart in the
+        # atlas: how far one grey level at one voxel moves the CPU's cells
+        # measures how ill-posed that registration is
+        v3 = read_v3draw(os.path.join(mask, "brain", STAGE4_INPUTS[0]))
+        v3[0, 0, 0] = v3[0, 0, 0] + 1 if v3[0, 0, 0] < 255 else 254
+        nudged = os.path.join(root, "mask_nudged")
+        write_stage1_files(nudged, s1_files)
+        write_v3draw(os.path.join(nudged, "brain", STAGE4_INPUTS[0]), v3)
+        nudge = stage4_run(root, nudged, "template_nudged_cpu", entry_csv, "cpu",
+                           template_file=template)
+        # the same cells in the same layout on a quarter-size brain of known
+        # transform (well posed), with the quarter-size atlas as the template
+        q_atlas_shape = tuple(-(-n // 4) for n in ATLAS)
+        q_stack = tuple(-(-n // 4) for n in BRAIN_STACK)
+        q_atlas, _, q_fixed, _, q_tf = known_brain(q_atlas_shape, q_stack, dev)
+        known = os.path.join(root, "mask_known")
+        q_u8 = np.clip(q_fixed * 0.6, 0, 255).astype(np.uint8)
+        write_stage1_files(known, {})
+        write_v3draw(os.path.join(known, "brain", STAGE4_INPUTS[0]), q_u8)
+        write_tiff_stack(os.path.join(known, "brain", STAGE4_INPUTS[1]), q_u8)
+        q_template = os.path.join(root, "atlas_quarter.nrrd")
+        write_nrrd(q_template, q_atlas)
+        runs["template_known"] = tuple(
+            stage4_run(root, known, f"known_{where}", entry_csv, device,
+                       template_file=q_template)
+            for where, device in (("card", None), ("cpu", "cpu")))
+        chain = {mode: chain_row(*r) for mode, r in runs.items()}
+        chain["template"]["cpu_one_voxel_nudge_max_coordinate_diff"] = float(
+            np.abs(nudge[4] - runs["template"][1][4]).max())
+        cells = parse_blob_csv(entry_csv)
+        pts = np.stack([cells[k] / (o / n) for k, o, n in zip("zyx", VOLUME, q_stack)], 1)
+        truth = q_tf(pts.astype(np.float32)).cpu().numpy()[:, ::-1]
+        chain["template_known"].update(
+            stack=list(q_stack), atlas=list(q_atlas_shape), point_error_mean=float(
+                np.linalg.norm(runs["template_known"][0][4] - truth, axis=1).mean()))
+        emit(dict(phase="stage4_chain", card=card, csv_rows=csv_text.count(b"\n") - 1,
+                  modes=chain))
+
+        # (b) a brain's stack size against a known transform
+        brain_pts = sample_brain_points(labels_fixed, BRAIN_POINTS, seed=SEED)
+        aa = AtlasAlignmentConfig(template_file=template)
+        brain_runs = []
+        for _ in range(2):
+            timer = StepSeconds(dev)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with timer.step("crop"):
+                fixed_c = crop_trailing_zeros(fixed)
+            affine, field, mode = resolve_registration(aa, fixed_c, device=dev, timer=timer)
+            with timer.step("point_warp"):
+                warped = warp_points(affine, field, brain_pts, device=dev)
+            brain_runs.append((time.perf_counter() - t0, dict(timer),
+                               torch.cuda.max_memory_allocated() / 2**30, affine, field,
+                               warped))
+        sec, steps, peak, affine, field, warped = brain_runs[0]
+        m = acceptance_metrics(affine_ffd_transform_fn(affine, field, dev), tf_true,
+                               brain_pts, labels)
+        m_affine = acceptance_metrics(affine_transform_fn(affine, dev), tf_true, brain_pts,
+                                      labels)
+        stage4_profiles(card, fixed_c, atlas, affine, dev)
+        repeat = (brain_runs[1][3].tobytes() == affine.tobytes()
+                  and brain_runs[1][4].ctrl.tobytes() == field.ctrl.tobytes()
+                  and brain_runs[1][5].tobytes() == warped.tobytes())
+        emit(dict(phase="stage4_brain", card=card, atlas=list(ATLAS),
+                  brain_stack=list(BRAIN_STACK), fixed_shape=list(field.fixed_shape),
+                  registration_mode=mode, ffd_ctrl=list(field.ctrl.shape),
+                  points=int(len(brain_pts)), seconds_make_atlas_and_fixed=sec_make,
+                  seconds=sec, seconds_by_step=steps, peak_gib=peak,
+                  seconds_second_run=brain_runs[1][0],
+                  seconds_by_step_second_run=brain_runs[1][1],
+                  peak_gib_second_run=brain_runs[1][2], repeatable=repeat, **m,
+                  affine_only=m_affine))
+
+    expect = {"fallback": "fallback", "landmarks": "landmarks", "template": "intensity-ncc",
+              "template_known": "intensity-ncc"}
+    for mode, r in chain.items():
+        if not (r["registration_mode"] == r["cpu_registration_mode"] == expect[mode]):
+            raise AssertionError(f"stage 4 {mode}: modes {r['registration_mode']} on the "
+                                 f"card, {r['cpu_registration_mode']} on the CPU")
+        if not (r["finite"] and r["cells"] == r["cpu_cells"] == csv_text.count(b"\n") - 1
+                and r["fixed_shape"] == r["cpu_fixed_shape"]):
+            raise AssertionError(f"stage 4 {mode}: cells or shapes differ: {r}")
+        # the registration of stage 1's noise block to the atlas is ill posed
+        # (see its nudge figure): card and CPU are held to each other on the
+        # well-posed brain of the same layout instead
+        if mode != "template" and r["max_coordinate_diff"] > STAGE4_TOL:
+            raise AssertionError(f"stage 4 {mode}: card and CPU cells differ by "
+                                 f"{r['max_coordinate_diff']} atlas voxels")
+    if not (chain["fallback"]["files_equal"] and chain["fallback"]["arrays_equal"]):
+        raise AssertionError(f"stage 4 fallback files differ: {chain['fallback']}")
+    if not chain["template_known"]["point_error_mean"] < POINT_ERROR_MEAN:
+        raise AssertionError(f"stage 4 on the known brain: {chain['template_known']}")
+    if not (m["point_error_mean"] < POINT_ERROR_MEAN and m["region_count_f1"] > REGION_F1):
+        raise AssertionError(f"stage 4 at the brain's size missed the acceptance bounds: {m}")
+    if not repeat:
+        raise AssertionError("two card runs of stage 4's registration differ")
 
 
 def main() -> int:
@@ -1077,7 +1395,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 5. stage 1, and stage 2 on its output ------------------------------
-    stage1_phase(smi, vol, sd, batch, dev)
+    s1_files = stage1_phase(smi, vol, sd, batch, dev)
     torch.cuda.empty_cache()
 
     # --- 6. stage 2 through run_inference, and 7. fused parity ---------------
@@ -1236,8 +1554,12 @@ def main() -> int:
     bin_stream = stream_phase(smi, sd, dev)
 
     # --- 11. stage 3 on the binaries of phases 6 and 10 ----------------------
-    stage3_phase(smi, bin_fast, bin_stream, dev)
+    csv_text = stage3_phase(smi, bin_fast, bin_stream, dev)
     del bin_fast, bin_stream
+
+    # --- 12. stage 4 on the files of phases 5 and 11, and at a brain's size ----
+    stage4_phase(smi, s1_files, csv_text, dev)
+    torch.cuda.empty_cache()
 
     packed = [r for r in rows + extra if r["path"] == "packed"]
     prow = [r for r in rows if r["path"] == "packed"]

@@ -24,7 +24,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 # the ported stages' sections
-_WORK_PACKAGES = ("mask_detection", "blob_detection", "postprocessing")
+_WORK_PACKAGES = ("mask_detection", "blob_detection", "postprocessing", "atlas_alignment")
 
 
 @dataclass(frozen=True)
@@ -128,6 +128,44 @@ class PostprocessingConfig:
 
 
 @dataclass(frozen=True)
+class AtlasAlignmentConfig:
+    input_location: str = ""
+    output_location: str = ""
+    mBrainAligner_location: str = ""
+    collection_folder: str = ""
+    parallel_processing: bool = True
+    landmarks_hemisphere: bool = False
+    # framework extensions (absent from the reference schema; harmless there):
+    # landmark marker files for the reference's ``-p a`` hemisphere mode
+    # (automate_mBrainaligner.py:40-56): brain-space landmarks and their
+    # atlas-space correspondences (Vaa3D .marker or x,y,z CSV). Used when
+    # landmarks_hemisphere is true.
+    landmarks_file: str = ""
+    atlas_landmarks_file: str = ""
+    # 50 µm atlas average-template volume (tif/v3draw/npy/nrrd, (z, y, x) =
+    # (228, 160, 264)) that the registration aligns against. Empty →
+    # geometric-normalization fallback (scale into the atlas box).
+    template_file: str = ""
+    use_ffd: bool = True
+    ffd_spacing: float = 16.0
+    # coarse→fine downsample-factor schedule for the FFD stage; (2, 1)
+    # front-loads iterations at 8× cheaper gradients on big brains
+    ffd_levels: tuple = (1,)
+    # intensity similarity for registration: 'ncc' (linear relation) or
+    # 'mi' (mutual information — cross-modality-robust)
+    similarity: str = "ncc"
+    # race axis-flip initializations at the coarse level before the full
+    # schedule (recovers mirrored acquisitions, like the reference tool's
+    # RANSAC/feature global stage)
+    multistart: bool = True
+    # stochastic similarity sampling: gradient steps evaluate the
+    # similarity on this many fresh jittered-lattice coordinates instead
+    # of the full grid (elastix-style random-coordinate sampler). 0 =
+    # dense full-grid gradients (default).
+    n_samples: int = 0
+
+
+@dataclass(frozen=True)
 class Flags:
     """The reference's 14 FLAGS (config.json:60-75)."""
 
@@ -154,6 +192,7 @@ class PipelineConfig:
     mask_detection: MaskDetectionConfig = field(default_factory=MaskDetectionConfig)
     blob_detection: BlobDetectionConfig = field(default_factory=BlobDetectionConfig)
     postprocessing: PostprocessingConfig = field(default_factory=PostprocessingConfig)
+    atlas_alignment: AtlasAlignmentConfig = field(default_factory=AtlasAlignmentConfig)
     FLAGS: Flags = field(default_factory=Flags)
 
     # ---- construction -------------------------------------------------
@@ -179,6 +218,7 @@ class PipelineConfig:
                 nested={"window_dimensions": WindowDimensions},
             ),
             postprocessing=_build(PostprocessingConfig, raw.get("postprocessing", {})),
+            atlas_alignment=_build(AtlasAlignmentConfig, raw.get("atlas_alignment", {})),
             FLAGS=_build(Flags, raw.get("FLAGS", {})),
         )
         return cfg.resolve_paths()
@@ -186,8 +226,8 @@ class PipelineConfig:
     # ---- path handling -------------------------------------------------
 
     def resolve_paths(self) -> "PipelineConfig":
-        """Rewrite relative input/output paths against ``output_location``
-        unless FLAGS.ABSPATHS (reference: __main__.py:36-44)."""
+        """Rewrite relative input/output/collection paths against
+        ``output_location`` unless FLAGS.ABSPATHS (reference: __main__.py:36-44)."""
         if self.FLAGS.ABSPATHS:
             return self
         out = self.output_location
@@ -197,7 +237,7 @@ class PipelineConfig:
             changes = {
                 f.name: os.path.join(out, getattr(section, f.name))
                 for f in dataclasses.fields(section)
-                if ("input" in f.name or "output" in f.name)
+                if ("input" in f.name or "output" in f.name or "collection" in f.name)
             }
             updated[pkg] = dataclasses.replace(section, **changes)
         return dataclasses.replace(self, **updated)

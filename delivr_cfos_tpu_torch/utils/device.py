@@ -4,7 +4,7 @@ timing for the port's entry points."""
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import numpy as np
 import torch
@@ -63,3 +63,8 @@ class StepSeconds(dict):
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self[name] = self.get(name, 0.0) + time.perf_counter() - t0
+
+
+def timed(timer: StepSeconds | None, name: str):
+    """``timer.step(name)``, or nothing where there is no timer."""
+    return nullcontext() if timer is None else timer.step(name)

@@ -148,7 +148,7 @@ def test_cuda_requested_without_a_card_raises(brain):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter: tests/conftest.py has imported JAX here. Stages
-    1-3, their modules, and chip_smoke.py."""
+    1-4, their modules, and chip_smoke.py."""
     code = (
         "import sys\n"
         "import delivr_cfos_tpu_torch.pipeline.stage02_inference\n"
@@ -162,6 +162,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import delivr_cfos_tpu_torch.pipeline.stage01_downsample_mask\n"
         "import delivr_cfos_tpu_torch.models.ilastik_import\n"
         "import delivr_cfos_tpu_torch.native.tiff\n"
+        "import delivr_cfos_tpu_torch.pipeline.stage04_atlas_align\n"
+        "import delivr_cfos_tpu_torch.registration\n"
+        "import delivr_cfos_tpu_torch.registration.validate\n"
+        "import delivr_cfos_tpu_torch.utils.io.nrrd\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'delivr_cfos_tpu' or m.startswith('delivr_cfos_tpu.')]\n"
