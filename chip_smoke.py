@@ -119,7 +119,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
              acceptance bounds), the two runs equal to the bit; and ten
              steps each of the race's level, the finest affine level and
              the FFD under torch.profiler (busy share, launches a step).
-13. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
+13. pipeline — the CLI, ``python3 -m delivr_cfos_tpu_torch config.json``, in
+             a child process on the card at full width (fast, TTA off): all
+             six stages on 192 raw TIFF planes of the (192, 480, 384) volume
+             (stage 1 by threshold, stage 4 in its fallback mode, stages 5-6
+             on a seeded 1328-structure ontology and a (456, 528, 320)
+             annotation, region-id stacks too), then stages 2-6 over phase
+             6's stage-2 input with the first run's stage-1 files (stage 1
+             leaves only a corner of this volume unmasked, where random
+             weights find nothing): exit code 0, the HOOK lines the JAX
+             runner prints for each config, every stage's files for the
+             brain (stage 4's included), and in the second run cells outside
+             background in stage 5's table and colored voxels in stage 6
+             (phase "pipeline_cli"). Then run_pipeline in process with
+             stage 2 alone: 18 conv3d_cs (17 packed, 1 direct, no gather),
+             17 conv3d_cs_pack and 4 deconv2x_cs launches per forward batch
+             ("pipeline_runner"). Stage 5 on the 1e6 cells phase 12 warped,
+             on the card and on the CPU: every CSV and both .xlsx (member by
+             member) equal, the heatmap to the bit or within 1 float32 ULP
+             with its differing voxels counted; seconds by step, peak GiB
+             ("stage5_brain"). Stage 6 on phase 10's streamed binaries and
+             phase 11's out-of-core caches with a cells table that gives
+             every component a region: RGB, region-id and depth-map stacks
+             byte-equal between the card and the CPU; seconds by step
+             ("stage6").
+14. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
              conv3d_cs_direct, conv3d_cs_pack, instance_norm_mish,
              deconv2x_cs), the nvidia-smi line, then the result line.
 
@@ -167,6 +191,53 @@ BRAIN_POINTS = 1_000_000  # cells warped at the brain's size
 # (tests/test_registration_acceptance.py:107-108)
 POINT_ERROR_MEAN = 1.5
 REGION_F1 = 0.93
+
+
+ALLEN_STRUCTURES = 1328  # structures of the Allen CCF3 ontology (stage05 :116-117)
+CCF_GRID = (456, 528, 320)  # the 25 µm CCF3 annotation grid, (z, y, x)
+
+
+def synthetic_ontology_xml(n=ALLEN_STRUCTURES, seed=SEED) -> str:
+    """An Allen-like ontology XML of ``n`` structures, from the seed: root
+    997 first, graph order in document order, each parent an earlier
+    structure, colors shared in groups of about four (color groups), and the
+    quirks parse_ontology_xml keeps: an acronym in double quotes, an
+    acronym that recurs, and an ``id-original`` that it remaps."""
+    rng = np.random.default_rng(seed)
+    palette = [f"{int(c):06X}" for c in rng.choice(2**24, max(1, n // 4), replace=False)]
+    ids = [997] + [int(i) for i in rng.choice(np.arange(1000, 10**6), n - 1, replace=False)]
+    level = [0]
+    out = ['<?xml version="1.0" encoding="UTF-8"?>\n<response>\n']
+    for i, sid in enumerate(ids):
+        parent = -1 if i == 0 else ids[int(rng.integers(0, i))]
+        if i:
+            level.append(level[ids.index(parent)] + 1)
+        acronym = "root" if i == 0 else f"R{i}"
+        if i == 3:
+            acronym = '"R3"'
+        if i == min(7, n - 1) and i > 2:
+            acronym = "R2"  # recurs
+        color = "FFFFFF" if i == 0 else palette[int(rng.integers(0, len(palette)))]
+        orig = "<id-original>312782566</id-original>" if i == min(5, n - 1) and i else ""
+        out.append(
+            f"<structure><id>{sid}</id>{orig}<name>{'root' if i == 0 else f'Region {i}'}"
+            f"</name><acronym>{acronym}</acronym><color-hex-triplet>{color}"
+            f"</color-hex-triplet><graph-order>{i}</graph-order><parent-structure-id>"
+            f"{parent}</parent-structure-id><st-level>{level[i]}</st-level></structure>\n")
+    out.append("</response>\n")
+    return "".join(out)
+
+
+def synthetic_annotation(shape=CCF_GRID, n=ALLEN_STRUCTURES, seed=SEED, block=8):
+    """A uint16 annotation of graph orders in [0, n): blocks of ``block``³
+    voxels of one region each, from the seed, and background (0) in the
+    lowest tenth of x."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.integers(0, n, tuple(-(-s // block) for s in shape)).astype(np.uint16)
+    vol = coarse.repeat(block, 0).repeat(block, 1).repeat(block, 2)
+    vol = np.ascontiguousarray(vol[: shape[0], : shape[1], : shape[2]])
+    vol[:, :, : shape[2] // 10] = 0
+    return vol
 
 
 def emit(obj) -> None:
@@ -665,13 +736,17 @@ def stream_phase(card, sd, dev):
 
     svol = make_volume(STREAM_VOLUME)
     z_starts = sorted({int(z) for z, _, _ in dense_patch_starts(STREAM_VOLUME, ROI, 0.5)})
-    k = streaming.SLAB_Z_STARTS
     with tempfile.TemporaryDirectory() as tmp:
-        # the window config, model config and batch run_inference resolves
-        # for the streamed run, so that the hand-written sidecar matches
+        # the window config, model config, slab depth and batch run_inference
+        # resolves for the streamed run, so that the hand-written sidecar
+        # matches; the depth is not capped by device memory at this volume
         pcfg = pipeline_config(tmp, "stream", load_all_ram=False)
         sw_cfg = sliding_window_config(pcfg)
         fast_cfg, _ = resolve_model_config(pcfg.blob_detection, sd, dev)
+        k = streaming.slab_depth(sw_cfg, fast_cfg, STREAM_VOLUME, svol.itemsize, dev)
+        if k != streaming.SLAB_Z_STARTS:
+            raise AssertionError(f"the streamed run's slabs take {k} window rows, not "
+                                 f"{streaming.SLAB_Z_STARTS}")
         slab_batch = streaming.slab_batch_size(
             sw_cfg, fast_cfg, STREAM_VOLUME, svol.itemsize, k, dev)
         mem_batch = auto_batch_size(ROI, fast_cfg, svol.nbytes, device=dev)
@@ -979,15 +1054,17 @@ def count_blobs_run(blob, post, brain, shape, load_all_ram, workers):
     return seconds, text, names, n, np.load(os.path.join(post, cache[0]), mmap_mode="r")
 
 
-def stage3_phase(card, bin_mem, bin_stream, dev):
+def stage3_phase(card, bin_mem, bin_stream, dev, keep):
     """Phase 11: stage 3 on the binaries of phases 6 and 10, and the device
-    labeler against the host engine."""
+    labeler against the host engine. Phase 10's binaries (brain "stream")
+    and the caches of their out-of-core run stay under ``keep`` for stage 6:
+    ``keep/blob`` and ``keep/stream_ooc``."""
     from delivr_cfos_tpu_torch.native.build import native_available
     from delivr_cfos_tpu_torch.ops.connected_components import label_volume_device
 
     engine = "native" if native_available() else "scipy"
     with tempfile.TemporaryDirectory() as tmp:
-        blob = os.path.join(tmp, "blob")
+        blob = os.path.join(keep, "blob")
         for brain, vol in (("brain", bin_mem), ("stream", bin_stream)):
             seg = os.path.join(blob, brain, "binary_segmentations")
             os.makedirs(seg)
@@ -1006,7 +1083,7 @@ def stage3_phase(card, bin_mem, bin_stream, dev):
         dev_same = dev_n == first[3] and np.array_equal(dev_labels, first[4])
 
         sec_st, text_st, _, n_st, _ = count_blobs_run(
-            blob, os.path.join(tmp, "stream_ooc") + os.sep, "stream", STREAM_VOLUME,
+            blob, os.path.join(keep, "stream_ooc") + os.sep, "stream", STREAM_VOLUME,
             *CC_BRANCHES["out_of_core"])
         emit(dict(phase="stage3", card=card, engine=engine, volume=list(VOLUME),
                   positives=int(bin_mem.sum()), n=first[3],
@@ -1178,7 +1255,8 @@ def stage4_phase(card, s1_files, csv_text, dev):
     """Phase 12: stage 4 through its entry point on the files of phases 5
     and 11 in its three modes, on the card and on the CPU, and on a brain of
     known transform in the same layout; then registration at a brain's stack
-    size against a known transform, twice on the card."""
+    size against a known transform, twice on the card. Returns the 1e6
+    cells that registration warped into the atlas, (z, y, x)."""
     from delivr_cfos_tpu_torch.config import AtlasAlignmentConfig
     from delivr_cfos_tpu_torch.pipeline.stage04_atlas_align import (
         crop_trailing_zeros, parse_blob_csv, resolve_registration,
@@ -1309,6 +1387,346 @@ def stage4_phase(card, s1_files, csv_text, dev):
         raise AssertionError(f"stage 4 at the brain's size missed the acceptance bounds: {m}")
     if not repeat:
         raise AssertionError("two card runs of stage 4's registration differ")
+    return warped
+
+
+STAGE_FLAGS = ("MASK_DOWNSAMPLE", "BLOB_DETECTION", "POSTPROCESSING", "ATLAS_ALIGNMENT",
+               "REGION_ASSIGNMENT", "VISUALIZATION")
+
+
+def expected_hooks(flags, n_brains=1):
+    """The HOOK lines the JAX runner prints for ``flags`` when every enabled
+    stage has ``n_brains`` items (delivr_cfos_tpu/pipeline/runner.py)."""
+    n = sum(flags.get(f, True) for f in STAGE_FLAGS)
+    return [f"HOOK:OVERALL:{n}"] + [f"HOOK:{i}:{n}:{b}:{n_brains}"
+                                     for i in range(1, n + 1) for b in range(n_brains)]
+
+
+def six_stage_config(root, raw, weights, assets, **flags):
+    """The six-stage config of a run over ``raw`` into ``root``: stage 1 by
+    threshold, stage 2 fast at full width with TTA off, stage 4 in its
+    fallback mode (no template: cells scaled into the atlas box), stages 5-6
+    on ``assets`` (annotation, ontology), region-id stacks too."""
+    ann, ontology = assets
+    return {
+        "raw_location": raw,
+        "output_location": root,
+        "mask_detection": {"output_location": "01_mask_detection/output/",
+                           "mask_with_Ilastik": False, "simple_threshold_value": 250},
+        "blob_detection": {"input_location": "01_mask_detection/output/",
+                           "model_location": weights,
+                           "output_location": "02_blob_detection/output/",
+                           "window_dimensions": dict(zip(
+                               ("window_dim_0", "window_dim_1", "window_dim_2"), ROI)),
+                           "precision": "fast"},
+        "postprocessing": {"input_location": "02_blob_detection/output/",
+                           "output_location": "03_postprocessing/output/"},
+        "atlas_alignment": {"input_location": "03_postprocessing/output/",
+                            "output_location": "04_atlas_alignment/output/",
+                            "collection_folder": "04_atlas_alignment/collection/"},
+        "region_assignment": {"input_location": "04_atlas_alignment/collection/",
+                              "CCF3_atlasfile": ann, "CCF3_ontology": ontology,
+                              "output_location": "05_region_assignment/"},
+        "visualization": {"input_csv_location": "05_region_assignment/",
+                          "input_size_location": "03_postprocessing/output/",
+                          "input_prediction_location": "02_blob_detection/output/",
+                          "cache_location": os.path.join(root, "06_visualization", "cache"),
+                          "output_location": "06_visualization/output/",
+                          "region_id_rgb": True, "region_id_grayvalues": True},
+        "FLAGS": {"TEST_TIME_AUGMENTATION": False, **flags},
+    }
+
+
+def cli_run(card, tag, raw_cfg, brain="brain"):
+    """``python3 -m delivr_cfos_tpu_torch config.json`` in a child process,
+    on the card: its seconds and stage spans, HOOK lines and the files each
+    stage left for ``brain``."""
+    from delivr_cfos_tpu_torch.config import PipelineConfig
+
+    path = os.path.join(raw_cfg["output_location"], "config.json")
+    os.makedirs(raw_cfg["output_location"], exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(raw_cfg, f)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "delivr_cfos_tpu_torch", path],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    with open(os.path.join(raw_cfg["output_location"], "cli_stdout.log"), "w") as f:
+        f.write(res.stdout + res.stderr)
+    if res.returncode != 0:
+        raise AssertionError(f"the CLI run {tag} exited {res.returncode}:\n"
+                             f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    lines = res.stdout.splitlines()
+    spans = {ln.split("[timing] ")[1].split(":")[0]: float(ln.rsplit(" ", 1)[1][:-1])
+             for ln in lines if "[timing] " in ln}
+    cfg = PipelineConfig.from_dict(raw_cfg)
+    flags = raw_cfg["FLAGS"]
+    seg = os.path.join(cfg.blob_detection.output_location, brain, "binary_segmentations")
+    ra, viz = cfg.region_assignment.output_location, cfg.visualization.output_location
+    files = {
+        "MASK_DOWNSAMPLE": [os.path.join(cfg.mask_detection.output_location, brain, n)
+                            for n in ("masked_niftis/masked_nifti.npy",
+                                      "stack_masked_downsampled.v3draw")],
+        "BLOB_DETECTION": [os.path.join(seg, "binaries.npy")],
+        "POSTPROCESSING": [os.path.join(cfg.postprocessing.output_location,
+                                        f"{VOLUME}_{brain}.csv")],
+        "ATLAS_ALIGNMENT": [
+            os.path.join(cfg.atlas_alignment.output_location, brain, "transform.npz"),
+            os.path.join(cfg.atlas_alignment.collection_folder,
+                         f"{brain}_local_registered_with_original_size.csv")],
+        "REGION_ASSIGNMENT": [os.path.join(ra, n) for n in (
+            f"cells_{brain}.csv", f"cells_overview_{brain}.csv",
+            f"region_collapsed_{brain}.csv", f"heatmap_{brain}.tif", "region_overview.xlsx",
+            "region_collapsed_overview.xlsx", "heatmap_collection.pickledump")],
+        "VISUALIZATION": [os.path.join(viz, f"{brain}_rgb_tiffs",
+                                       f"{brain}rgb_C{c:02d}_z{z:04d}.tif")
+                          for c in range(3) for z in range(VOLUME[0])]
+        + [os.path.join(viz, brain, f"{brain}_region_id_tiffs", f"region_id_{z:04d}.tif")
+           for z in range(VOLUME[0])],
+    }
+    missing = [p for f in STAGE_FLAGS if flags.get(f, True) for p in files[f]
+               if not os.path.exists(p)]
+    if os.path.exists(os.path.join(seg, "inference_in_progress")):
+        missing.append(os.path.join(seg, "inference_in_progress") + " (left behind)")
+    return dict(seconds=seconds, spans=spans,
+                hooks=[ln for ln in lines if ln.startswith("HOOK:")],
+                expected_hooks=expected_hooks(flags), missing=missing), cfg
+
+
+def cells_csv(path, cells_zyx, seed=SEED):
+    """A stage-4 collection CSV of atlas cells (z, y, x) in its own layout."""
+    rng = np.random.default_rng(seed)
+    size = rng.integers(1, 200, len(cells_zyx))
+    xyz = np.round(np.asarray(cells_zyx, np.float64)[:, ::-1], 3)
+    with open(path, "w") as f:
+        f.write("# registration_mode: intensity-ncc\nn type x y z Size\n")
+        f.writelines(f"{i} 1 {x!r} {y!r} {z!r} {sz}\n"
+                     for i, ((x, y, z), sz) in enumerate(zip(xyz.tolist(), size.tolist())))
+
+
+def zip_members(path):
+    import zipfile
+
+    with zipfile.ZipFile(path) as z:
+        return [(i.filename, z.read(i)) for i in z.infolist()]
+
+
+def stage5_at_scale(card, tmp, warped, assets, dev):
+    """Stage 5 on the 1e6 cells of phase 12's brain on the card and on the
+    CPU: every file equal (the .xlsx member by member), the heatmap to the
+    bit or its differing voxels counted in float32 ULPs."""
+    from delivr_cfos_tpu_torch.config import PipelineConfig
+    from delivr_cfos_tpu_torch.pipeline.stage05_region_assignment import map_cells_to_atlas
+    from delivr_cfos_tpu_torch.utils.io.tiff import read_tiff
+
+    os.makedirs(os.path.join(tmp, "s5_raw", "brain"))
+    os.makedirs(os.path.join(tmp, "s5_collection"))
+    t0 = time.perf_counter()
+    cells_csv(os.path.join(tmp, "s5_collection",
+                           "brain_local_registered_with_original_size.csv"), warped)
+    sec_csv = time.perf_counter() - t0
+    runs = {}
+    for where, device in (("card", None), ("cpu", "cpu")):
+        cfg = PipelineConfig.from_dict({
+            "raw_location": os.path.join(tmp, "s5_raw"),
+            "atlas_alignment": {"collection_folder": os.path.join(tmp, "s5_collection")},
+            "region_assignment": {"CCF3_atlasfile": assets[0], "CCF3_ontology": assets[1],
+                                  "output_location": os.path.join(tmp, f"s5_{where}")},
+            "FLAGS": {"ABSPATHS": True}})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        steps = map_cells_to_atlas(cfg, device=device)
+        runs[where] = (time.perf_counter() - t0, steps,
+                       torch.cuda.max_memory_allocated() / 2**30)
+    card_dir, cpu_dir = os.path.join(tmp, "s5_card"), os.path.join(tmp, "s5_cpu")
+    names = sorted(os.listdir(cpu_dir))
+    differing = []
+    for name in names:
+        a, b = os.path.join(card_dir, name), os.path.join(cpu_dir, name)
+        same = (zip_members(a) == zip_members(b)) if name.endswith(".xlsx") else (
+            open(a, "rb").read() == open(b, "rb").read())
+        if not same:
+            differing.append(name)
+    h_card = read_tiff(os.path.join(card_dir, "heatmap_brain.tif"))
+    h_cpu = read_tiff(os.path.join(cpu_dir, "heatmap_brain.tif"))
+    ulps = np.abs(h_card.view(np.int32).astype(np.int64) - h_cpu.view(np.int32))
+    import pandas as pd
+
+    cells = pd.read_csv(os.path.join(card_dir, "cells_brain.csv"), usecols=["acronym"])
+    row = dict(phase="stage5_brain", card=card, cells_in=int(len(warped)),
+               cells_kept=int(len(cells)),
+               cells_outside_background=int((cells["acronym"] != "bgr").sum()),
+               regions_hit=int(cells["acronym"].nunique()), grid=list(CCF_GRID),
+               structures=ALLEN_STRUCTURES, files=names, files_differing=differing,
+               heatmap_voxels_differing=int((ulps > 0).sum()),
+               heatmap_max_ulps=int(ulps.max()), heatmap_sum=float(h_card.sum(dtype=np.float64)),
+               seconds_write_collection_csv=sec_csv,
+               seconds=runs["card"][0], seconds_by_step=runs["card"][1],
+               peak_gib=runs["card"][2], seconds_cpu=runs["cpu"][0],
+               seconds_by_step_cpu=runs["cpu"][1])
+    emit(row)
+    if [d for d in differing if d not in ("heatmap_brain.tif", "heatmap_collection.pickledump")]:
+        raise AssertionError(f"stage 5 tables differ between the card and the CPU: {differing}")
+    if int(ulps.max()) > 1:
+        raise AssertionError(f"stage 5's heatmap differs from the CPU's beyond 1 ULP: {row}")
+    if not row["cells_outside_background"]:
+        raise AssertionError("stage 5 put no cell outside background")
+
+
+def stage6_card_cpu(card, keep, tmp, ontology_path):
+    """Stage 6 on phase 10's streamed binaries and phase 11's stage-3 caches
+    (brain "stream" under ``keep``), with a cells table that assigns every
+    component a region of the ontology: RGB, region-id and depth-map stacks
+    on the card and on the CPU, byte for byte."""
+    import pandas as pd
+
+    from delivr_cfos_tpu_torch.analysis.ontology import parse_ontology_xml
+    from delivr_cfos_tpu_torch.config import PipelineConfig
+    from delivr_cfos_tpu_torch.pipeline.stage06_visualization import blob_highlighter
+    from delivr_cfos_tpu_torch.utils.io.tiff import read_tiff, write_tiff_stack
+
+    post = os.path.join(keep, "stream_ooc") + os.sep
+    n = int([f for f in os.listdir(post) if f.endswith("-cc3d.npy")][0].rsplit("-", 2)[-2])
+    ontology = parse_ontology_xml(ontology_path)
+    rng = np.random.default_rng(SEED)
+    rows = ontology.iloc[rng.integers(0, len(ontology), n)]
+    regions = os.path.join(tmp, "s6_regions")
+    os.makedirs(regions)
+    pd.DataFrame({"connected_component_id": np.arange(1, n + 1),
+                  **{k: rows[k].to_numpy() for k in ("acronym", "red", "green", "blue",
+                                                     "graph_order")}}).to_csv(
+        os.path.join(regions, "cells_stream.csv"))
+    # stage 1's downsampled masked stack of the streamed brain: its bright half
+    ds = np.zeros((-(-STREAM_VOLUME[0] // 4) - 1, -(-STREAM_VOLUME[1] // 15),
+                   -(-STREAM_VOLUME[2] // 15)), np.uint8)
+    ds[:, : ds.shape[1] // 2] = 120
+    os.makedirs(os.path.join(tmp, "s6_mask", "stream"))
+    write_tiff_stack(os.path.join(tmp, "s6_mask", "stream", "downsampled_masked_stack.tif"),
+                     ds)
+    runs = {}
+    for where, device in (("card", None), ("cpu", "cpu")):
+        for mode in ("regions", "depthmap"):
+            cfg = PipelineConfig.from_dict({
+                "mask_detection": {"output_location": os.path.join(tmp, "s6_mask")},
+                "postprocessing": {"output_location": post},
+                "visualization": {
+                    "input_csv_location": regions,
+                    "input_prediction_location": os.path.join(keep, "blob"),
+                    "cache_location": os.path.join(tmp, f"s6_cache_{where}"),
+                    "output_location": os.path.join(tmp, f"s6_{where}"),
+                    "region_id_rgb": True, "region_id_grayvalues": True,
+                    "no_atlas_depthmap": mode == "depthmap"},
+                "FLAGS": {"ABSPATHS": True}})
+            t0 = time.perf_counter()
+            steps = blob_highlighter(cfg, "stream", (1, 1, *STREAM_VOLUME), device=device)
+            runs[(where, mode)] = (time.perf_counter() - t0, steps)
+    card_files = tree_files(os.path.join(tmp, "s6_card"))
+    cpu_files = tree_files(os.path.join(tmp, "s6_cpu"))
+    differing = sorted(k for k in set(card_files) | set(cpu_files)
+                       if card_files.get(k) != cpu_files.get(k))
+    colored = sum(int(np.count_nonzero(read_tiff(os.path.join(tmp, "s6_card", k))))
+                  for k in card_files if "_rgb_tiffs" in k)
+    row = dict(phase="stage6", card=card, volume=list(STREAM_VOLUME), components=n,
+               files=len(card_files), files_differing=differing[:10],
+               n_files_differing=len(differing), rgb_colored_voxels=colored,
+               seconds={f"{w}/{m}": r[0] for (w, m), r in runs.items()},
+               seconds_by_step={f"{w}/{m}": r[1] for (w, m), r in runs.items()})
+    emit(row)
+    if differing or len(card_files) != 5 * STREAM_VOLUME[0] or not colored:
+        raise AssertionError(f"stage 6 files differ between the card and the CPU, or "
+                             f"no voxel is colored: {row}")
+
+
+def pipeline_phase(card, sd, dev, keep, warped, batch):
+    """Phase 13: the CLI over all six stages on the card, the runner's stage 2
+    launches in process, stage 5 at a brain's size and stage 6 on the
+    streamed brain, each held to the CPU."""
+    from delivr_cfos_tpu_torch.config import PipelineConfig
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack, conv3d_cs_packed,
+    )
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
+    from delivr_cfos_tpu_torch.pipeline.runner import run_pipeline
+    from delivr_cfos_tpu_torch.utils.io.tiff import read_tiff, write_tiff, write_tiff_stack
+
+    import pandas as pd
+
+    vol = make_volume()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        raw = os.path.join(tmp, "raw")
+        os.makedirs(os.path.join(raw, "brain"))
+        for z in range(vol.shape[0]):
+            write_tiff(os.path.join(raw, "brain", f"Z{z:04d}.tif"), vol[z])
+        weights = os.path.join(tmp, "weights.tar")
+        torch.save({"state_dict": sd}, weights)
+        assets = (os.path.join(tmp, "annotation.tif"), os.path.join(tmp, "ontology.xml"))
+        write_tiff_stack(assets[0], synthetic_annotation(), compress=True)
+        with open(assets[1], "w") as f:
+            f.write(synthetic_ontology_xml())
+        sec_setup = time.perf_counter() - t0
+
+        # (a) the CLI: all six stages on the raw brain, then from stage 2 on
+        # over phase 6's stage-2 input (stage 1 leaves only a corner of this
+        # volume unmasked, where random weights find nothing)
+        six, cfg6 = cli_run(card, "six", six_stage_config(
+            os.path.join(tmp, "six"), raw, weights, assets))
+        write_brain(os.path.join(tmp, "s2in"), vol)
+        five_cfg = six_stage_config(os.path.join(tmp, "five"), raw, weights, assets,
+                                   MASK_DOWNSAMPLE=False)
+        five_cfg["mask_detection"]["output_location"] = cfg6.mask_detection.output_location
+        five_cfg["blob_detection"]["input_location"] = os.path.join(tmp, "s2in", "in")
+        five, cfg5 = cli_run(card, "five", five_cfg)
+        cells = pd.read_csv(os.path.join(cfg5.region_assignment.output_location,
+                                         "cells_brain.csv"), index_col=0)
+        rgb = os.path.join(cfg5.visualization.output_location, "brain_rgb_tiffs")
+        colored = sum(int(np.count_nonzero(read_tiff(os.path.join(rgb, f))))
+                      for f in os.listdir(rgb))
+        csv6 = os.path.join(cfg6.postprocessing.output_location, f"{VOLUME}_brain.csv")
+        emit(dict(phase="pipeline_cli", card=card, volume=list(VOLUME),
+                  seconds_setup=sec_setup, six=six, five=five,
+                  six_stage3_rows=open(csv6).read().count("\n") - 1,
+                  five_stage5_cells=int(len(cells)),
+                  five_stage5_cells_outside_background=int((cells["acronym"] != "bgr").sum()),
+                  five_stage6_colored_voxels=colored))
+        for name, run in (("six stages", six), ("stages 2-6", five)):
+            if run["hooks"] != run["expected_hooks"] or run["missing"]:
+                raise AssertionError(f"the CLI run of {name}: HOOK lines {run['hooks']} "
+                                     f"(expected {run['expected_hooks']}), missing "
+                                     f"{run['missing'][:5]}")
+        if not ((cells["acronym"] != "bgr").sum() and colored):
+            raise AssertionError("the CLI run of stages 2-6 counted no cell outside "
+                                 "background in stage 5 or colored no voxel in stage 6")
+
+        # (b) the runner's stage 2 in process: launches per forward batch
+        n_active, n_batches = forward_batches(vol, batch, dev)
+        run_cfg = six_stage_config(os.path.join(tmp, "inproc"), raw, weights, assets,
+                                  **{f: f == "BLOB_DETECTION" for f in STAGE_FLAGS})
+        run_cfg["blob_detection"]["input_location"] = os.path.join(tmp, "s2in", "in")
+        conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
+        conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_gather.launches = 0
+        t0 = time.perf_counter()
+        timer = run_pipeline(PipelineConfig.from_dict(run_cfg))
+        sec_run = time.perf_counter() - t0
+        counts = (conv3d_cs.launches, conv3d_cs_packed.launches, conv3d_cs_direct.launches,
+                  conv3d_cs_gather.launches, conv3d_cs_pack.launches, deconv2x_cs.launches)
+        emit(dict(phase="pipeline_runner", card=card, volume=list(VOLUME), batch=batch,
+                  active_windows=n_active, forward_batches=n_batches,
+                  kernel_launches=counts[0], conv3d_cs_packed_launches=counts[1],
+                  conv3d_cs_direct_launches=counts[2], conv3d_cs_gather_launches=counts[3],
+                  conv3d_cs_pack_launches=counts[4], deconv2x_cs_launches=counts[5],
+                  seconds=sec_run, spans=timer.spans))
+        if n_batches == 0 or counts != (18 * n_batches, PACKED * n_batches, n_batches, 0,
+                                        PACKED * n_batches, 4 * n_batches):
+            raise AssertionError(f"the runner's stage 2: launches {counts} for "
+                                 f"{n_batches} forward batches")
+
+        # (c) stage 5 at a brain's size, (d) stage 6 on the streamed brain
+        stage5_at_scale(card, tmp, warped, assets, dev)
+        torch.cuda.empty_cache()
+        stage6_card_cpu(card, keep, tmp, assets[1])
 
 
 def main() -> int:
@@ -1553,12 +1971,21 @@ def main() -> int:
     # --- 10. out-of-core streaming stage 2 against in device memory ---------
     bin_stream = stream_phase(smi, sd, dev)
 
+    # phase 10's streamed brain and its stage-3 caches, kept for stage 6
+    keep = tempfile.TemporaryDirectory()
+
     # --- 11. stage 3 on the binaries of phases 6 and 10 ----------------------
-    csv_text = stage3_phase(smi, bin_fast, bin_stream, dev)
+    csv_text = stage3_phase(smi, bin_fast, bin_stream, dev, keep.name)
     del bin_fast, bin_stream
 
     # --- 12. stage 4 on the files of phases 5 and 11, and at a brain's size ----
-    stage4_phase(smi, s1_files, csv_text, dev)
+    warped = stage4_phase(smi, s1_files, csv_text, dev)
+    torch.cuda.empty_cache()
+
+    # --- 13. the CLI and the runner over six stages; stages 5 and 6 ---------
+    pipeline_phase(smi, sd, dev, keep.name, warped, batch)
+    keep.cleanup()
+    del warped
     torch.cuda.empty_cache()
 
     packed = [r for r in rows + extra if r["path"] == "packed"]

@@ -1,18 +1,17 @@
-"""Typed configuration: the parts of the reference ``config.json`` schema
-that the ported stages read.
+"""Typed configuration, bit-compatible with the reference ``config.json``
+schema.
 
 The reference threads a raw JSON dict (``settings``) through every stage
 (reference: __main__.py:63-67) and rewrites relative input/output paths
 against ``output_location`` unless ``FLAGS.ABSPATHS`` (reference:
 __main__.py:36-44). The same schema parses into frozen dataclasses here, with
 the same rewriting (``os.path.join`` with an absolute right operand is the
-identity, so absolute paths survive). Sections of stages not ported yet are
-ignored, as unknown keys are; each slice adds its own.
+identity, so absolute paths survive), and ``to_settings_dict`` for code that
+needs the reference-shaped dict.
 
 Schema source of truth: reference config.json:1-76 and README.md:46-71.
-This is the port's own copy of the parts of ``delivr_cfos_tpu/config.py`` it
-needs: the port imports nothing of the JAX package, and both parse the same
-files alike.
+This is the port's own copy of ``delivr_cfos_tpu/config.py``: the port
+imports nothing of the JAX package, and both parse the same files alike.
 """
 
 from __future__ import annotations
@@ -23,8 +22,14 @@ import os
 from dataclasses import dataclass, field
 from typing import Any
 
-# the ported stages' sections
-_WORK_PACKAGES = ("mask_detection", "blob_detection", "postprocessing", "atlas_alignment")
+_WORK_PACKAGES = (
+    "mask_detection",
+    "blob_detection",
+    "postprocessing",
+    "atlas_alignment",
+    "region_assignment",
+    "visualization",
+)
 
 
 @dataclass(frozen=True)
@@ -90,6 +95,11 @@ class BlobDetectionConfig:
     # semantics either way); the port's stage 2 does not shard yet and
     # raises NotImplementedError above 1.
     spatial_shards: int = 1
+    # framework extension: distribute independent brains across this many
+    # groups of devices, each brain's spatial sharding inside one group.
+    # 1 = no distribution; the port's runner raises NotImplementedError
+    # above 1 until multi-GPU is ported.
+    dcn_slices: int = 1
     # framework extension — numerical mode of the UNet forward (the
     # reference exposes its perf controls in config too, config.json:24-28):
     #   'parity' — float32 activations, convolutions without TF32: the
@@ -166,6 +176,26 @@ class AtlasAlignmentConfig:
 
 
 @dataclass(frozen=True)
+class RegionAssignmentConfig:
+    input_location: str = ""
+    CCF3_atlasfile: str = ""
+    CCF3_ontology: str = ""
+    output_location: str = ""
+
+
+@dataclass(frozen=True)
+class VisualizationConfig:
+    input_csv_location: str = ""
+    input_size_location: str = ""
+    input_prediction_location: str = ""
+    cache_location: str = ""
+    output_location: str = ""
+    region_id_rgb: bool = True
+    region_id_grayvalues: bool = False
+    no_atlas_depthmap: bool = False
+
+
+@dataclass(frozen=True)
 class Flags:
     """The reference's 14 FLAGS (config.json:60-75)."""
 
@@ -193,6 +223,10 @@ class PipelineConfig:
     blob_detection: BlobDetectionConfig = field(default_factory=BlobDetectionConfig)
     postprocessing: PostprocessingConfig = field(default_factory=PostprocessingConfig)
     atlas_alignment: AtlasAlignmentConfig = field(default_factory=AtlasAlignmentConfig)
+    region_assignment: RegionAssignmentConfig = field(
+        default_factory=RegionAssignmentConfig
+    )
+    visualization: VisualizationConfig = field(default_factory=VisualizationConfig)
     FLAGS: Flags = field(default_factory=Flags)
 
     # ---- construction -------------------------------------------------
@@ -219,6 +253,10 @@ class PipelineConfig:
             ),
             postprocessing=_build(PostprocessingConfig, raw.get("postprocessing", {})),
             atlas_alignment=_build(AtlasAlignmentConfig, raw.get("atlas_alignment", {})),
+            region_assignment=_build(
+                RegionAssignmentConfig, raw.get("region_assignment", {})
+            ),
+            visualization=_build(VisualizationConfig, raw.get("visualization", {})),
             FLAGS=_build(Flags, raw.get("FLAGS", {})),
         )
         return cfg.resolve_paths()
@@ -241,6 +279,25 @@ class PipelineConfig:
             }
             updated[pkg] = dataclasses.replace(section, **changes)
         return dataclasses.replace(self, **updated)
+
+    def setup_folders(self) -> None:
+        """Create the stage output directory tree (reference: __main__.py:17-34)."""
+        os.makedirs(self.output_location, exist_ok=True)
+        for pkg in _WORK_PACKAGES:
+            section = getattr(self, pkg)
+            out = section.output_location
+            # the reference creates output_location and its grandparent
+            parent = os.path.dirname(os.path.dirname(out.rstrip("/")))
+            if parent:
+                os.makedirs(parent, exist_ok=True)
+            os.makedirs(out, exist_ok=True)
+        os.makedirs(self.atlas_alignment.collection_folder, exist_ok=True)
+
+    # ---- reference-shaped dict ------------------------------------------
+
+    def to_settings_dict(self) -> dict[str, Any]:
+        """Reference-shaped raw settings dict (post path-resolution)."""
+        return dataclasses.asdict(self)
 
 
 def _build(cls, raw: dict[str, Any], nested: dict[str, type] | None = None):

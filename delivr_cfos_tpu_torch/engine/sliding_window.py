@@ -65,6 +65,18 @@ def _device_bytes(device) -> tuple[int, bool]:
     return _HOST_DEFAULT_BYTES, False
 
 
+def windows_that_fit(roi, model_cfg: BasicUNetConfig, volume_bytes: int = 0,
+                     reserve_fraction: float = 0.5, device=None) -> int:
+    """How many windows' activations fit beside a resident volume of
+    ``volume_bytes`` in the share of device memory that ``auto_batch_size``
+    budgets (below 1: not even one)."""
+    total, _ = _device_bytes(device)
+    dtype_bytes = 2 if model_cfg.precision == "fast" else 4
+    per_window = 8 * int(np.prod(roi)) * model_cfg.features[0] * dtype_bytes
+    resident = 5 * volume_bytes + min(total // 8, 2 * 2**30)
+    return (int(total * (1 - reserve_fraction)) - resident) // per_window
+
+
 def auto_batch_size(roi, model_cfg: BasicUNetConfig, volume_bytes: int = 0,
                     reserve_fraction: float = 0.5, device=None) -> int:
     """Window batch from device memory (the reference sizes it from free
@@ -72,12 +84,9 @@ def auto_batch_size(roi, model_cfg: BasicUNetConfig, volume_bytes: int = 0,
     activations; resident beside them the input and the f32 accumulator and
     count map (5 × the 2 B/voxel input) and the staged-logits chunk. Rounded
     down to a power of two; capped at 256 on a card, 32 elsewhere."""
-    total, live = _device_bytes(device)
-    dtype_bytes = 2 if model_cfg.precision == "fast" else 4
-    per_window = 8 * int(np.prod(roi)) * model_cfg.features[0] * dtype_bytes
-    resident = 5 * volume_bytes + min(total // 8, 2 * 2**30)
-    budget = int(total * (1 - reserve_fraction)) - resident
-    n = min(max(1, budget // per_window), 256 if live else 32)
+    live = _device_bytes(device)[1]
+    n = min(max(1, windows_that_fit(roi, model_cfg, volume_bytes, reserve_fraction,
+                                    device)), 256 if live else 32)
     p = 1
     while p * 2 <= n:
         p *= 2

@@ -38,12 +38,34 @@ from delivr_cfos_tpu_torch.engine.sliding_window import (
     _zero_accumulators,
     auto_batch_size,
     scan_interval,
+    windows_that_fit,
 )
 from delivr_cfos_tpu_torch.models.basic_unet import BasicUNet, BasicUNetConfig
 from delivr_cfos_tpu_torch.ops.morphology import binary_erosion_cross
 
 ENGINE = "delivr_cfos_tpu_torch"  # sidecars of other engines never match
-SLAB_Z_STARTS = 4  # window grid rows per slab
+SLAB_Z_STARTS = 4  # window grid rows per slab, at most
+
+
+def _slab_depth_planes(volume_shape, roi, interval, slab_z_starts: int) -> int:
+    n_z = len(_dim_starts(volume_shape[0], roi[0], interval[0]))
+    return (min(slab_z_starts, n_z) - 1) * interval[0] + roi[0]
+
+
+def slab_depth(cfg: SlidingWindowConfig, model_cfg: BasicUNetConfig, volume_shape,
+               itemsize: int, device) -> int:
+    """Window rows per slab: ``SLAB_Z_STARTS``, or fewer, down to 1, where a
+    slab of that many rows at the volume's full y·x leaves no room for one
+    window in the device memory that ``auto_batch_size`` budgets (a real
+    brain's y·x on a card of less memory)."""
+    roi = tuple(cfg.roi)
+    interval = scan_interval(volume_shape, roi, cfg.overlap)
+    plane = volume_shape[1] * volume_shape[2] * itemsize
+    for k in range(SLAB_Z_STARTS, 1, -1):
+        depth = _slab_depth_planes(volume_shape, roi, interval, k)
+        if windows_that_fit(roi, model_cfg, depth * plane, device=device) >= 1:
+            return k
+    return 1
 
 
 def slab_batch_size(cfg: SlidingWindowConfig, model_cfg: BasicUNetConfig,
@@ -53,8 +75,7 @@ def slab_batch_size(cfg: SlidingWindowConfig, model_cfg: BasicUNetConfig,
     from one slab's bytes, not the volume's."""
     roi = tuple(cfg.roi)
     interval = scan_interval(volume_shape, roi, cfg.overlap)
-    n_z = len(_dim_starts(volume_shape[0], roi[0], interval[0]))
-    depth = (min(slab_z_starts, n_z) - 1) * interval[0] + roi[0]
+    depth = _slab_depth_planes(volume_shape, roi, interval, slab_z_starts)
     return cfg.batch_size or auto_batch_size(
         roi, model_cfg, depth * volume_shape[1] * volume_shape[2] * itemsize,
         device=device,
@@ -251,7 +272,7 @@ def _resume_point(path, sig, z_starts, slab_z_starts, n_slabs, roi_z):
 def infer_volume_streaming(model: BasicUNet, volume,
                            cfg: SlidingWindowConfig = SlidingWindowConfig(),
                            model_cfg: BasicUNetConfig = BasicUNetConfig(),
-                           slab_z_starts: int = SLAB_Z_STARTS,
+                           slab_z_starts: int | None = None,
                            binary_out: np.ndarray | None = None,
                            logits_out: np.ndarray | None = None,
                            sigmoid_out: np.ndarray | None = None,
@@ -260,7 +281,7 @@ def infer_volume_streaming(model: BasicUNet, volume,
                            prefetch: bool = True):
     """Stream a host (Z, Y, X) array (typically an ``np.memmap``) through the
     sliding-window engine on the model's device, in slabs of
-    ``slab_z_starts`` window rows.
+    ``slab_z_starts`` window rows (None: ``slab_depth``).
 
     Finalized chunks go into ``binary_out`` / ``logits_out`` /
     ``sigmoid_out`` (each shaped ``out_shape``, the real unpadded extent;
@@ -289,6 +310,9 @@ def infer_volume_streaming(model: BasicUNet, volume,
     xs = _dim_starts(x_img, roi[2], interval[2])
     if binary_out is None:
         binary_out = np.empty(out_shape, np.uint8)
+    if slab_z_starts is None:
+        slab_z_starts = slab_depth(cfg, model_cfg, volume.shape, volume.dtype.itemsize,
+                                   device)
     n_slabs = -(-len(z_starts) // slab_z_starts)
     imp = _importance_for(cfg, device)
     batch = slab_batch_size(cfg, model_cfg, volume.shape, volume.dtype.itemsize,

@@ -13,6 +13,12 @@ A volume runs in device memory when ``FLAGS.LOAD_ALL_RAM`` is set and it fits
 through ``engine/streaming.py`` straight into the disk outputs, resuming from
 the sidecar ``streaming_resume.json``. Spatial sharding over several devices
 raises NotImplementedError: a later item of ROADMAP.md ("Multi-GPU").
+
+A marker file, ``binary_segmentations/inference_in_progress``, exists from
+before ``binaries.npy`` is opened until its last write is flushed, so an
+inference that raised leaves a brain that ``inference_done`` does not take
+as finished (the JAX package's runner skips any ``binaries.npy`` without a
+resume sidecar, zeros included).
 """
 
 from __future__ import annotations
@@ -40,6 +46,20 @@ from delivr_cfos_tpu_torch.ops.morphology import binarize_logits
 from delivr_cfos_tpu_torch.utils.device import resolve_device
 from delivr_cfos_tpu_torch.utils.io.npy import open_memmap
 from delivr_cfos_tpu_torch.utils.logging import log
+
+IN_PROGRESS = "inference_in_progress"
+RESUME_SIDECAR = "streaming_resume.json"
+
+
+def inference_done(session_path: str) -> bool:
+    """Whether stage 2 finished the brain of ``session_path``
+    ({blob_output}/{mouse}): its binaries exist and neither a live resume
+    sidecar (a partly streamed run, which run_inference resumes) nor the
+    in-progress marker (a run that raised) lies beside them."""
+    d = os.path.join(session_path, "binary_segmentations")
+    return (os.path.exists(os.path.join(d, "binaries.npy"))
+            and not os.path.exists(os.path.join(d, RESUME_SIDECAR))
+            and not os.path.exists(os.path.join(d, IN_PROGRESS)))
 
 
 def resolve_model_config(bd, params, device) -> tuple[BasicUNetConfig, str]:
@@ -113,13 +133,15 @@ def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
         f"real {real}, tta={sw_cfg.tta}, device={device}, "
         f"mode={'in device memory' if whole_volume_ok else 'streaming'}"
     )
-    resume_path = os.path.join(binaries_path, "streaming_resume.json")
+    resume_path = os.path.join(binaries_path, RESUME_SIDECAR)
     binaries_file = os.path.join(binaries_path, "binaries.npy")
     activated_file = os.path.join(binaries_path, "network_output.npy")
     # a live sidecar means a partly streamed binaries.npy is on disk: reopen
     # it in place so that the finished chunks survive the resume
     resuming = (not whole_volume_ok and os.path.exists(resume_path)
                 and _is_npy(binaries_file, real, np.uint8))
+    marker = os.path.join(binaries_path, IN_PROGRESS)
+    open(marker, "w").close()
     out = open_memmap(binaries_file, shape=real, dtype=np.uint8,
                       mode="r+" if resuming else "w+")
     activated = None
@@ -164,6 +186,7 @@ def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
         del activated
     out.flush()
     del out
+    os.remove(marker)
     log("Blob detection finished", mouse_name)
     return session_path
 

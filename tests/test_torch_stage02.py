@@ -96,17 +96,33 @@ def test_run_inference_matches_jax(brain):
     np.testing.assert_array_equal(p_bin[outside], j_bin[outside])
 
 
-def test_config_parses_like_the_jax_package(brain):
-    raw = brain("cfg/", precision="fast", spatial_shards=1)
+def test_config_parses_like_the_jax_package(brain, tmp_path):
+    """Every section, stages 5-6 and ``dcn_slices`` included: the same
+    settings after path resolution, and the same folder tree."""
+    raw = brain("cfg/", precision="fast", spatial_shards=1, dcn_slices=2)
     raw["mask_detection"] = {"output_location": "masks/", "ingest_threads": 3}
+    raw["region_assignment"] = {"input_location": "04/collection/",
+                                "CCF3_atlasfile": "/atlas/annotation.tif",
+                                "CCF3_ontology": "ontology.xml", "output_location": "05/"}
+    raw["visualization"] = {"input_csv_location": "05/", "cache_location": "/cache",
+                            "output_location": "06/out/", "region_id_grayvalues": True,
+                            "no_atlas_depthmap": True, "unknown_key": 1}
     ours, theirs = PipelineConfig.from_dict(raw), JaxPipelineConfig.from_dict(raw)
-    assert dataclasses.asdict(ours.blob_detection) == {
-        k: v for k, v in dataclasses.asdict(theirs.blob_detection).items()
-        if k != "dcn_slices"
-    }
-    assert dataclasses.asdict(ours.FLAGS) == dataclasses.asdict(theirs.FLAGS)
-    assert dataclasses.asdict(ours.mask_detection) == dataclasses.asdict(theirs.mask_detection)
+    assert ours.to_settings_dict() == theirs.to_settings_dict()
+    assert dataclasses.asdict(ours.blob_detection) == dataclasses.asdict(theirs.blob_detection)
+    assert dataclasses.asdict(ours.region_assignment) == dataclasses.asdict(
+        theirs.region_assignment)
+    assert dataclasses.asdict(ours.visualization) == dataclasses.asdict(theirs.visualization)
     assert ours.blob_detection.window_dimensions.zyx == (16, 16, 16)
+    assert ours.region_assignment.output_location == os.path.join(raw["output_location"], "05/")
+    assert ours.visualization.cache_location == "/cache"
+
+    trees = []
+    for pkg, name in ((PipelineConfig, "ours"), (JaxPipelineConfig, "theirs")):
+        out = tmp_path / name
+        pkg.from_dict({**raw, "output_location": str(out)}).setup_folders()
+        trees.append(sorted(os.path.relpath(d, out) for d, _, _ in os.walk(out)))
+    assert trees[0] == trees[1] and "05" in trees[0]
 
 
 def test_resolve_model_config_modes():
@@ -148,7 +164,7 @@ def test_cuda_requested_without_a_card_raises(brain):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter: tests/conftest.py has imported JAX here. Stages
-    1-4, their modules, and chip_smoke.py."""
+    1-6, their modules, the runner, the CLI, and chip_smoke.py."""
     code = (
         "import sys\n"
         "import delivr_cfos_tpu_torch.pipeline.stage02_inference\n"
@@ -166,6 +182,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import delivr_cfos_tpu_torch.registration\n"
         "import delivr_cfos_tpu_torch.registration.validate\n"
         "import delivr_cfos_tpu_torch.utils.io.nrrd\n"
+        "import delivr_cfos_tpu_torch.__main__\n"
+        "import delivr_cfos_tpu_torch.pipeline.runner\n"
+        "import delivr_cfos_tpu_torch.pipeline.stage05_region_assignment\n"
+        "import delivr_cfos_tpu_torch.pipeline.stage06_visualization\n"
+        "import delivr_cfos_tpu_torch.utils.profiling\n"
+        "import delivr_cfos_tpu_torch.analysis.ontology\n"
+        "import delivr_cfos_tpu_torch.utils.io.xlsx\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'delivr_cfos_tpu' or m.startswith('delivr_cfos_tpu.')]\n"

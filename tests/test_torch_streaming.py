@@ -250,6 +250,40 @@ def test_resume_rebuilds_erosion_carry_from_host(weights, tmp_path):
     np.testing.assert_array_equal(res_bin, full_bin)
 
 
+@pytest.mark.parametrize("rows", [1, 2])
+def test_slab_depth_shrinks_only_where_a_slab_would_not_fit(weights, monkeypatch, rows):
+    """On a fake device too small for a slab of 4 window rows at the
+    volume's full y·x, the stream takes ``rows`` rows a slab (the smallest
+    fake device, in 4 KiB steps, that holds that many), records that depth
+    in its resume signature, and gives the in-memory engine's binaries; on
+    the default device it keeps 4."""
+    from delivr_cfos_tpu_torch.engine import sliding_window as psw
+
+    model, _ = weights
+    vol = _half_bright((72, 32, 32), 4)
+    cfg = _cfg()
+
+    def depth_on(total_bytes):
+        monkeypatch.setattr(psw, "_HOST_DEFAULT_BYTES", total_bytes)
+        return st.slab_depth(cfg, PORT_CFG, vol.shape, 2, "cpu")
+
+    assert depth_on(16 * 2**30) == st.SLAB_Z_STARTS
+    next(t for t in range(2**20, 2**26, 4096) if depth_on(t) == rows)
+    depths = []
+    real_signature = st.resume_signature
+
+    def spy(cfg, volume_shape, out_shape, slab_z_starts, batch):
+        depths.append(slab_z_starts)
+        return real_signature(cfg, volume_shape, out_shape, slab_z_starts, batch)
+
+    monkeypatch.setattr(st, "resume_signature", spy)
+    bins, logits = _stream(model, vol, cfg)
+    assert depths == [rows]
+    want, want_bin = infer_volume(model, vol, cfg, PORT_CFG)
+    np.testing.assert_allclose(logits, want.numpy(), rtol=1e-4, atol=1e-4)
+    _assert_binaries_outside_band(bins, want_bin.numpy(), want.numpy())
+
+
 def test_signature_covers_batch_slab_and_engine():
     cfg = _cfg()
     shape = (72, 32, 32)
