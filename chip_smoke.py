@@ -93,6 +93,27 @@ Phases, each printing one JSON line; any failure exits non-zero:
              conv3d_cs_pack and 4 deconv2x_cs launches per 18 conv3d_cs in
              both; one more streamed run under
              torch.profiler gives the device's idle share.
+10b. sharded — stage 2 z-sharded over meshes that name the card 2 and 4
+             times (parallel/: the real per-shard window grids, halo copies
+             and kernels on one card): run_inference in device memory with
+             mesh= on phase 6's volume, mean logits (sharded_infer_volume)
+             within rtol = atol = 1e-4 of the single-device engine's,
+             binaries equal to phase 6's outside the 1e-3 logit band, 18
+             conv3d_cs (17 packed, 1 direct, no gather), 17 conv3d_cs_pack
+             and 4 deconv2x_cs launches per forward batch summed over
+             shards, halo planes and MB pulled and pushed, seconds, GVox/s,
+             peak GiB, and no library convolution in one traced run; then
+             phase 10's streamed run on the 4-way mesh (held to phase 10's
+             run as phase 10 holds its own) and its resume from slab 2;
+             label_volume_sharded on phase 6's fast binaries equal to the
+             host labels (rounds, seconds).
+10c. distributed — the CLI in two child processes of one gloo group
+             (DELIVR_COORDINATOR on localhost) with dcn_slices 2 over three
+             copies of the first window row (96 planes) of phase 6's
+             stage-2 input (two processes share the card, and phase 6's
+             whole depth does not fit twice): both exit 0 with the JAX
+             runner's distribution lines, brains (0, 2) in process 0 and 1
+             in process 1, every binaries.npy equal to a one-process run's.
 11. stage3 — count_blobs on phase 6's fast binaries.npy in its three
              branches (in RAM native, in RAM slab-parallel, out of core): the
              CSV bytes, cache names and labels equal across branches, on the
@@ -619,9 +640,10 @@ def pipeline_config(root, out, precision="auto", load_all_ram=True):
     })
 
 
-def stage2(root, out, sd, precision="auto", load_all_ram=True, model_cfg=None):
-    """One run_inference over ``root``'s brain into ``out``: (seconds, peak
-    device GiB, binaries, sigmoid outputs)."""
+def stage2(root, out, sd, precision="auto", load_all_ram=True, model_cfg=None, **kw):
+    """One run_inference over ``root``'s brain into ``out`` (``kw``: more
+    arguments, a mesh): (seconds, peak device GiB, binaries, sigmoid
+    outputs)."""
     from delivr_cfos_tpu_torch.pipeline.stage02_inference import run_inference
 
     cfg = pipeline_config(root, out, precision, load_all_ram)
@@ -630,7 +652,7 @@ def stage2(root, out, sd, precision="auto", load_all_ram=True, model_cfg=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    session = run_inference(cfg, "brain", shape, params=sd, model_cfg=model_cfg)
+    session = run_inference(cfg, "brain", shape, params=sd, model_cfg=model_cfg, **kw)
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     bdir = os.path.join(session, "binary_segmentations")
@@ -713,7 +735,7 @@ def check_in_mish(card, name, n, c, d, h, w, dtype, chunk=8):
 def stream_phase(card, sd, dev):
     """Phase 10: stage 2 fast streamed from a disk memmap, then in device
     memory on the same file, then resumed from a hand-written sidecar.
-    Returns the streamed binaries."""
+    Returns the streamed binaries and sigmoid outputs."""
     from delivr_cfos_tpu_torch.engine import streaming
     from delivr_cfos_tpu_torch.engine.sliding_window import (
         auto_batch_size, dense_patch_starts,
@@ -828,7 +850,301 @@ def stream_phase(card, sd, dev):
     if not (ok_res and resumed):
         raise AssertionError("the resumed stream disagrees with the uninterrupted one")
 
-    return bin_st
+    return bin_st, sig_st
+
+
+def sharded_forward_batches(vol, n, dev):
+    """(forward batches, halo planes) of the n-way sharded in-memory engine
+    over ``vol``'s active windows (TTA off), the batches summed over
+    shards: each shard batches its own windows."""
+    from delivr_cfos_tpu_torch.engine.sliding_window import (
+        SlidingWindowConfig, _dim_starts, _forward_chunk_batches, scan_interval,
+    )
+    from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig
+    from delivr_cfos_tpu_torch.parallel.sharded_inference import (
+        plan_sharding, shard_batch_size,
+    )
+
+    interval = scan_interval(vol.shape, ROI, 0.5)
+    _, zloc, halo, shard_z = plan_sharding(vol.shape[0], ROI[0], interval[0], n)
+    ys, xs = (_dim_starts(vol.shape[d], ROI[d], interval[d]) for d in (1, 2))
+    total = 0
+    for k, zs in enumerate(shard_z):
+        active = sum(1 for z in zs for y in ys for x in xs
+                     if vol[k * zloc + z:k * zloc + z + ROI[0], y:y + ROI[1],
+                            x:x + ROI[2]].max() > 0)
+        if not active:
+            continue
+        batch = shard_batch_size(SlidingWindowConfig(roi=ROI), BasicUNetConfig(precision="fast"),
+                                 (zloc + halo, *vol.shape[1:]), dev)
+        chunk = _forward_chunk_batches(ROI, batch, dev) * batch
+        total += sum(math.ceil(min(chunk, active - lo) / batch)
+                     for lo in range(0, active, chunk))
+    return total, halo
+
+
+def sharded_phase(card, sd, dev, bin_fast, bin_stream, sig_stream):
+    """Phase 10b: stage 2 in device memory on meshes that name the card 2
+    and 4 times (real per-shard window grids, halo copies and kernels),
+    against the single-device run; the streamed stage 2 of phase 10 on the
+    4-way mesh, and its resume; the sharded labeler against the host's."""
+    from delivr_cfos_tpu_torch.engine import streaming
+    from delivr_cfos_tpu_torch.engine.sliding_window import dense_patch_starts, infer_volume
+    from delivr_cfos_tpu_torch.models.basic_unet import build_model
+    from delivr_cfos_tpu_torch.ops.connected_components import label_volume_host
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack, conv3d_cs_packed,
+    )
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
+    from delivr_cfos_tpu_torch.parallel import make_mesh, sharded_infer_volume
+    from delivr_cfos_tpu_torch.parallel.sharded_cc import label_volume_sharded
+    from delivr_cfos_tpu_torch.parallel.sharded_inference import sharded_accumulate
+    from delivr_cfos_tpu_torch.pipeline.stage02_inference import (
+        resolve_model_config, sliding_window_config,
+    )
+
+    def reset():
+        conv3d_cs.launches = conv3d_cs_packed.launches = conv3d_cs_direct.launches = 0
+        conv3d_cs_gather.launches = conv3d_cs_pack.launches = deconv2x_cs.launches = 0
+        sharded_accumulate.halo_in_bytes = sharded_accumulate.halo_out_bytes = 0
+
+    def counts():
+        return (conv3d_cs.launches, conv3d_cs_packed.launches, conv3d_cs_direct.launches,
+                conv3d_cs_gather.launches, conv3d_cs_pack.launches, deconv2x_cs.launches)
+
+    def per_batch(c, nb):
+        return c == (18 * nb, PACKED * nb, nb, 0, PACKED * nb, 4 * nb)
+
+    vol = make_volume()
+    n_vox = int(np.prod(VOLUME))
+    meshes = {n: make_mesh({"sp": n}, devices=[dev] * n) for n in (2, 4)}
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        pcfg = pipeline_config(tmp, "x")
+        sw_cfg = sliding_window_config(pcfg)
+        fast_cfg, _ = resolve_model_config(pcfg.blob_detection, sd, dev)
+        model = build_model(sd, fast_cfg, dev)
+        single, _ = infer_volume(model, vol, sw_cfg, fast_cfg, return_binary=False)
+        band = (single.abs() <= BAND).cpu().numpy()
+        write_brain(tmp, vol)
+        for n, mesh in meshes.items():
+            mean = sharded_infer_volume(mesh, model, vol, sw_cfg, fast_cfg)
+            diff = (mean - single).abs()
+            ratio = float((diff / (1e-4 + 1e-4 * single.abs())).max())
+            dev_max = float(diff.max())
+            del mean, diff
+            n_batches, halo = sharded_forward_batches(vol, n, dev)
+            reset()
+            sec, peak, bins, sig = stage2(tmp, f"mesh{n}", sd, mesh=mesh)
+            c = counts()
+            row = dict(n_sp=n, halo_planes=halo,
+                       halo_mb_in=sharded_accumulate.halo_in_bytes / 1e6,
+                       halo_mb_out=sharded_accumulate.halo_out_bytes / 1e6,
+                       seconds=sec, gvox_per_s=n_vox / sec / 1e9, peak_gib=peak,
+                       forward_batches=n_batches, kernel_launches=c[0],
+                       conv3d_cs_packed_launches=c[1], conv3d_cs_direct_launches=c[2],
+                       conv3d_cs_gather_launches=c[3], conv3d_cs_pack_launches=c[4],
+                       deconv2x_cs_launches=c[5], max_abs_logit_dev=dev_max,
+                       logit_tol_ratio=ratio,
+                       differing_voxels=int((bins != bin_fast).sum()),
+                       differing_outside_band=int((bins != bin_fast)[~band].sum()),
+                       positives=int(bins.sum()))
+            rows.append(row)
+            if not (ratio <= 1.0 and row["differing_outside_band"] == 0
+                    and np.isfinite(sig).all() and bins.shape == VOLUME):
+                raise AssertionError(f"stage 2 on the {n}-way mesh disagrees with one "
+                                     f"device: {row}")
+            if n_batches == 0 or not per_batch(c, n_batches):
+                raise AssertionError(f"stage 2 on the {n}-way mesh: launches {c} for "
+                                     f"{n_batches} forward batches summed over shards")
+        with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA,
+        ]) as prof:
+            sec_traced, _, _, _ = stage2(tmp, "mesh4_traced", sd, mesh=meshes[4])
+        prof_row = profile_summary(prof, sec_traced)
+        emit(dict(prof_row, card=card, run="stage2 fast, 4-way one-card mesh"))
+        del prof, model, single
+        if (prof_row["library_conv"] or prof_row["library_transposed_conv"]
+                or prof_row["gather_kernel"] or not prof_row["conv3d_cs_direct_launches"]):
+            raise AssertionError(f"the sharded stage 2 left the kernels: {prof_row}")
+
+    # streamed: phase 10's memmap on the 4-way mesh, then a resume from slab 2
+    svol = make_volume(STREAM_VOLUME)
+    z_starts = sorted({int(z) for z, _, _ in dense_patch_starts(STREAM_VOLUME, ROI, 0.5)})
+    s_band = np.abs(logit_of(sig_stream)) <= BAND
+    s_vox = int(np.prod(STREAM_VOLUME))
+    with tempfile.TemporaryDirectory() as tmp:
+        pcfg = pipeline_config(tmp, "s", load_all_ram=False)
+        sw_cfg = sliding_window_config(pcfg)
+        fast_cfg, _ = resolve_model_config(pcfg.blob_detection, sd, dev)
+        k = streaming.slab_depth(sw_cfg, fast_cfg, STREAM_VOLUME, svol.itemsize, dev)
+        slab_batch = streaming.slab_batch_size(sw_cfg, fast_cfg, STREAM_VOLUME,
+                                               svol.itemsize, k, dev)
+        write_brain(tmp, svol)
+        del svol
+        reset()
+        sec_st, peak_st, bin_st, sig_st = stage2(tmp, "s", sd, load_all_ram=False,
+                                                 mesh=meshes[4])
+        st_counts, halo_in, halo_out = (counts(), sharded_accumulate.halo_in_bytes,
+                                        sharded_accumulate.halo_out_bytes)
+        bdir = os.path.join(tmp, "s", "brain", "binary_segmentations")
+        finalized = z_starts[2 * k]
+        with open(os.path.join(bdir, "streaming_resume.json"), "w") as f:
+            json.dump({"sig": streaming.resume_signature(
+                sw_cfg, STREAM_VOLUME, STREAM_VOLUME, k, slab_batch, spatial_shards=4),
+                "next_slab": 2, "finalized": finalized}, f)
+        for name, bad in (("binaries.npy", 255), ("network_output.npy", -1.0)):
+            mm = np.load(os.path.join(bdir, name), mmap_mode="r+")
+            mm[finalized:] = bad
+            mm.flush()
+            del mm
+        reset()
+        sec_res, _, bin_res, sig_res = stage2(tmp, "s", sd, load_all_ram=False,
+                                              mesh=meshes[4])
+        res_counts = counts()
+        resumed = (0 < res_counts[0] < st_counts[0] and not os.path.exists(
+            os.path.join(bdir, "streaming_resume.json")))
+    sig_dev = float(np.abs(sig_st - sig_stream).max())
+    res_dev = float(np.abs(sig_res - sig_st).max())
+    stream_row = dict(
+        volume=list(STREAM_VOLUME), slabs=-(-len(z_starts) // k), n_sp=4,
+        seconds=sec_st, gvox_per_s=s_vox / sec_st / 1e9, peak_gib=peak_st,
+        halo_mb_in=halo_in / 1e6, halo_mb_out=halo_out / 1e6,
+        kernel_launches=st_counts[0], resume_kernel_launches=res_counts[0],
+        max_sigmoid_dev=sig_dev,
+        differing_outside_band=int((bin_st != bin_stream)[~s_band].sum()),
+        seconds_resume=sec_res, resume_max_sigmoid_dev=res_dev,
+        resume_bit_identical=bool(np.array_equal(bin_res, bin_st)
+                                  and np.array_equal(sig_res, sig_st)),
+        resumed=resumed)
+    del sig_st, sig_res
+    for c in (st_counts, res_counts):
+        nb = c[0] // 18
+        if c[0] % 18 or not nb or not per_batch(c, nb):
+            raise AssertionError(f"the sharded stream: launches {c}")
+    if not (sig_dev <= 1e-5 and stream_row["differing_outside_band"] == 0
+            and bin_st.shape == STREAM_VOLUME):
+        raise AssertionError(f"the sharded stream disagrees with phase 10's: {stream_row}")
+    if not (resumed and res_dev <= 1e-5 and not (bin_res != bin_st)[~s_band].any()):
+        raise AssertionError(f"the sharded stream's resume disagrees: {stream_row}")
+    del bin_st, bin_res, s_band
+
+    # the sharded labeler on phase 6's fast binaries, against the host engine
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, n_cc, rounds = label_volume_sharded(meshes[4], bin_fast, return_rounds=True)
+    sec_cc = time.perf_counter() - t0
+    want, want_n = label_volume_host(bin_fast)
+    cc_row = dict(n_sp=4, volume=list(VOLUME), components=n_cc, rounds=rounds,
+                  seconds=sec_cc, equal_to_host=bool(n_cc == want_n
+                                                     and np.array_equal(labels, want)))
+    del labels, want
+    emit(dict(phase="sharded", card=card, volume=list(VOLUME), runs=rows,
+              stream=stream_row, labeler=cc_row))
+    if not cc_row["equal_to_host"]:
+        raise AssertionError(f"the sharded labeler disagrees with the host: {cc_row}")
+
+
+DIST_BRAINS = 3
+# the brains' depth: phase 6's first window row. Two processes on one card
+# each size their window batch from the whole card; phase 6's full depth
+# (165 active windows, a 128-window batch of about 39 GiB peak a process)
+# does not fit twice in 80 GB, one row (55 active windows) does
+DIST_PLANES = ROI[0]
+
+
+def distributed_phase(card, sd, dev):
+    """Phase 10c: the CLI in two processes of one gloo group
+    (DELIVR_COORDINATOR on localhost) with dcn_slices 2 over three copies of
+    the first window row of phase 6's stage-2 input: each brain runs in one
+    process (0, 1, 0), with the JAX runner's log lines, and every
+    binaries.npy equals a one-process run's."""
+    import socket
+
+    from delivr_cfos_tpu_torch.config import PipelineConfig
+    from delivr_cfos_tpu_torch.pipeline.runner import run_pipeline
+    from delivr_cfos_tpu_torch.utils.io.tiff import write_tiff
+
+    vol = make_volume()[:DIST_PLANES]
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = os.path.join(tmp, "raw")
+        os.makedirs(os.path.join(raw, "brain0"))
+        for z in range(DIST_PLANES):
+            write_tiff(os.path.join(raw, "brain0", f"Z{z:04d}.tif"), vol[z])
+        write_brain(tmp, vol)
+        src = os.path.join(tmp, "in", "brain")
+        os.makedirs(os.path.join(tmp, "s2in"))
+        for b in range(DIST_BRAINS):
+            os.symlink(src, os.path.join(tmp, "s2in", f"brain{b}"))
+            if b:
+                os.symlink(os.path.join(raw, "brain0"), os.path.join(raw, f"brain{b}"))
+        weights = os.path.join(tmp, "weights.tar")
+        torch.save({"state_dict": sd}, weights)
+
+        def config(out, dcn_slices):
+            return {
+                "raw_location": raw, "output_location": os.path.join(tmp, out),
+                "blob_detection": {
+                    "input_location": os.path.join(tmp, "s2in"), "model_location": weights,
+                    "output_location": "blob/", "dcn_slices": dcn_slices,
+                    "window_dimensions": dict(zip(
+                        ("window_dim_0", "window_dim_1", "window_dim_2"), ROI)),
+                    "precision": "fast"},
+                "FLAGS": {"TEST_TIME_AUGMENTATION": False, "LOAD_ALL_RAM": True,
+                          **{f: f == "BLOB_DETECTION" for f in STAGE_FLAGS}},
+            }
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        path = os.path.join(tmp, "dist.json")
+        with open(path, "w") as f:
+            json.dump(config("dist", 2), f)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "delivr_cfos_tpu_torch", path],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env={**os.environ, "DELIVR_COORDINATOR": f"127.0.0.1:{port}",
+                 "DELIVR_NUM_PROCESSES": "2", "DELIVR_PROCESS_ID": str(r)})
+            for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:  # no child outlives the phase, whatever happened
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        seconds = time.perf_counter() - t0
+        codes = [p.returncode for p in procs]
+        if codes != [0, 0]:
+            raise AssertionError(f"the two-process run exited {codes}:\n"
+                                 f"{logs[0][-3000:]}\n{logs[1][-3000:]}")
+
+        t0 = time.perf_counter()
+        run_pipeline(PipelineConfig.from_dict(config("one", 1)))
+        sec_one = time.perf_counter() - t0
+        ran = [[b for b in range(DIST_BRAINS) if f"brain{b} → DCN slice" in log]
+               for log in logs]
+        equal = []
+        for b in range(DIST_BRAINS):
+            got, want = (np.load(os.path.join(tmp, out, "blob", f"brain{b}",
+                                              "binary_segmentations", "binaries.npy"))
+                         for out in ("dist", "one"))
+            equal.append(bool(np.array_equal(got, want)))
+    lines_ok = [
+        f"torch.distributed initialized: process {r}/2" in log
+        and f"Distributing {DIST_BRAINS} brains over 2 DCN slices (1 chips each)" in log
+        for r, log in enumerate(logs)]
+    emit(dict(phase="distributed", card=card, processes=2, brains=DIST_BRAINS,
+              volume=list(vol.shape), exit_codes=codes, brains_by_process=ran,
+              log_lines=lines_ok, binaries_equal=equal, seconds=seconds,
+              seconds_one_process=sec_one))
+    if ran != [[0, 2], [1]] or not all(lines_ok) or not all(equal):
+        raise AssertionError("the two-process run: brains {}, log lines {}, binaries equal "
+                             "{}\n{}\n{}".format(ran, lines_ok, equal, logs[0][-2000:],
+                                                  logs[1][-2000:]))
 
 
 def stage1_config(raw, out, model):
@@ -1969,7 +2285,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 10. out-of-core streaming stage 2 against in device memory ---------
-    bin_stream = stream_phase(smi, sd, dev)
+    bin_stream, sig_stream = stream_phase(smi, sd, dev)
+    torch.cuda.empty_cache()
+
+    # --- 10b. stage 2 sharded over one-card meshes; the sharded labeler ------
+    sharded_phase(smi, sd, dev, bin_fast, bin_stream, sig_stream)
+    del sig_stream
+    torch.cuda.empty_cache()
+
+    # --- 10c. two processes share three brains (dcn_slices 2) ---------------
+    distributed_phase(smi, sd, dev)
 
     # phase 10's streamed brain and its stage-3 caches, kept for stage 6
     keep = tempfile.TemporaryDirectory()

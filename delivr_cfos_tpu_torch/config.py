@@ -91,14 +91,13 @@ class BlobDetectionConfig:
     output_location: str = ""
     window_dimensions: WindowDimensions = field(default_factory=WindowDimensions)
     # framework extension: shard each volume's sliding-window passes
-    # z-spatially across this many devices. 1 = single device (reference
-    # semantics either way); the port's stage 2 does not shard yet and
-    # raises NotImplementedError above 1.
+    # z-spatially across this many devices (parallel/sharded_inference.py).
+    # 1 = single device (reference semantics either way); more than there
+    # are devices logs a warning and runs on one.
     spatial_shards: int = 1
     # framework extension: distribute independent brains across this many
-    # groups of devices, each brain's spatial sharding inside one group.
-    # 1 = no distribution; the port's runner raises NotImplementedError
-    # above 1 until multi-GPU is ported.
+    # groups of devices, each brain's spatial sharding inside one group
+    # (pipeline/runner.py). 1 = no distribution.
     dcn_slices: int = 1
     # framework extension — numerical mode of the UNet forward (the
     # reference exposes its perf controls in config too, config.json:24-28):

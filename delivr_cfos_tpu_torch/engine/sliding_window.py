@@ -352,10 +352,16 @@ def _forward_chunk_batches(roi, batch: int, device) -> int:
 
 
 def _forward_windows(model, vol, u16, starts, batch, roi, use_noise,
-                     flip_axis, noise_std, gen, model_cfg):
+                     flip_axis, noise_std, gen, model_cfg, win_perm=None):
     """Gather → (noise, flip) → UNet → unflip, batch by batch; returns the
-    (len(starts), *roi) f32 logits."""
+    (len(starts), *roi) f32 logits.
+
+    ``win_perm``: the axis permutation (self-inverse) that rotated the
+    volume so another axis leads; windows are rotated back to (z, y, x)
+    around the UNet, which is not transposition-symmetric, and the logits
+    forward again."""
     out = []
+    perm = None if win_perm is None else (0, *(1 + a for a in win_perm))
     for lo in range(0, len(starts), batch):
         wins = torch.stack(
             [_values(_window(vol, s, roi), u16) for s in starts[lo : lo + batch]]
@@ -366,21 +372,25 @@ def _forward_windows(model, vol, u16, starts, batch, roi, use_noise,
                 dtype=torch.float32,
             )
             wins = wins + noise * noise_std
+        if perm is not None:
+            wins = wins.permute(perm)
         x = wins[..., None]
         if flip_axis is not None:
             x = torch.flip(x, dims=(flip_axis + 1,))
         logits = basic_unet_apply(model, x, model_cfg)
         if flip_axis is not None:
             logits = torch.flip(logits, dims=(flip_axis + 1,))
-        out.append(logits[..., 0].float())
+        logits = logits[..., 0].float()
+        out.append(logits if perm is None else logits.permute(perm))
     return torch.cat(out)
 
 
-def _infer_dense(model, vol, u16, acc, cnt, starts, active_mask, plan, gen,
-                 cfg, passes, batch, roi, model_cfg, imp):
+def _infer_dense(model, vol, u16, acc, cnt, starts, active_mask, plan, gens,
+                 cfg, passes, batch, roi, model_cfg, imp, win_perm=None):
     """Accumulation with the dense phase-sum decomposition: regular windows
     through phase adds (background ones as one constant add, the count map
-    in closed form), clamped tails through the per-window path."""
+    in closed form), clamped tails through the per-window path. ``gens``:
+    the noise generator of each pass."""
     n_passes = len(passes)
     reg = plan.regular_mask
     n_active = int(active_mask.sum())
@@ -416,11 +426,11 @@ def _infer_dense(model, vol, u16, acc, cnt, starts, active_mask, plan, gen,
             (lo, hi, idx_list, tail_ranks[tsel] - lo, starts[tail_active[tsel]])
         )
 
-    for use_noise, flip_axis in passes:
+    for (use_noise, flip_axis), gen in zip(passes, gens):
         for lo, hi, idx_list, t_idx, t_starts in chunk_plans:
             flat = _forward_windows(
                 model, vol, u16, active[lo:hi], batch, roi, use_noise,
-                flip_axis, cfg.tta_noise_std, gen, model_cfg,
+                flip_axis, cfg.tta_noise_std, gen, model_cfg, win_perm,
             )
             _dense_phase_add_all(acc, flat, idx_list, plan, roi, imp)
             _tail_accumulate(acc, cnt, flat, t_idx, t_starts, roi, imp)
@@ -494,36 +504,55 @@ def _nonzero(t, u16: bool):
     return t != 0 if u16 else t > 0
 
 
-def _accumulate(model, vol, u16, acc, cnt, dims, interval, gen, cfg, batch,
-                model_cfg, imp):
-    """Every pass of every window of the grid ``dims`` (per-dim start lists,
-    local to ``vol``) into ``acc``/``cnt`` in place: background windows as
-    constant skips, the rest through the model, dense phase-sum accumulation
-    where the stride divides the roi and per-window accumulation otherwise."""
-    roi = tuple(cfg.roi)
-    starts = np.array(
+def _grid_starts(dims) -> np.ndarray:
+    """(N, 3) int32 window starts of the grid ``dims``, z-major."""
+    return np.array(
         [(z, y, x) for z in dims[0] for y in dims[1] for x in dims[2]],
         dtype=np.int32,
-    )
+    ).reshape(-1, 3)
+
+
+def _active_mask(vol, u16, starts, roi, threshold) -> np.ndarray:
+    """Which windows hold a voxel above ``threshold`` (the others are
+    background and skip the model); one host sync."""
     maxes = torch.stack(
         [_values(_window(vol, s, roi), u16).amax() for s in starts]
     ).cpu().numpy()
-    active_mask = maxes > cfg.background_threshold
+    return maxes > threshold
+
+
+def _accumulate(model, vol, u16, acc, cnt, dims, interval, gens, cfg, batch,
+                model_cfg, imp, active_mask=None, win_perm=None):
+    """Every pass of every window of the grid ``dims`` (per-dim start lists,
+    local to ``vol``) into ``acc``/``cnt`` in place: background windows as
+    constant skips, the rest through the model, dense phase-sum accumulation
+    where the stride divides the roi and per-window accumulation otherwise.
+
+    ``gens``: one noise generator per pass, or one generator for all passes
+    in turn. ``active_mask``: the windows' background test when the caller
+    made it already (``_active_mask``)."""
+    roi = tuple(cfg.roi)
+    starts = _grid_starts(dims)
+    if active_mask is None:
+        active_mask = _active_mask(vol, u16, starts, roi, cfg.background_threshold)
     passes = _tta_passes(cfg)
+    if isinstance(gens, torch.Generator):
+        gens = [gens] * len(passes)
 
     if _dense_applicable(roi, interval):
         plan = _DensePlan(dims, roi, interval)
         _infer_dense(model, vol, u16, acc, cnt, starts, active_mask, plan,
-                     gen, cfg, passes, batch, roi, model_cfg, imp)
+                     gens, cfg, passes, batch, roi, model_cfg, imp, win_perm)
         return
     _skip_accumulate(acc, cnt, starts[~active_mask], roi, len(passes), imp)
     active = starts[active_mask]
     chunk = _forward_chunk_batches(roi, batch, acc.device) * batch
-    for use_noise, flip_axis in passes:
+    for (use_noise, flip_axis), gen in zip(passes, gens):
         for lo in range(0, len(active), chunk):
             flat = _forward_windows(
                 model, vol, u16, active[lo : lo + chunk], batch, roi,
                 use_noise, flip_axis, cfg.tta_noise_std, gen, model_cfg,
+                win_perm,
             )
             _tail_accumulate(
                 acc, cnt, flat, range(flat.shape[0]),

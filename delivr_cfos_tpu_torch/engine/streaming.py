@@ -10,9 +10,12 @@ device, and only finalized mean-logit / sigmoid / binary chunks return to the
 host. Peak device memory is one slab (input + f32 accumulator + count, and
 the next slab's input while it uploads), whatever the volume's size.
 
-Each slab runs the engine of ``engine/sliding_window.py`` on its local grid;
-its TTA noise comes from a ``torch.Generator`` seeded from (seed, slab
-index), so a resumed run draws the noise an uninterrupted run drew.
+Each slab runs the engine of ``engine/sliding_window.py`` on its local grid,
+or, with ``mesh=``, z-sharded over the mesh's devices
+(``parallel/sharded_inference.py``); its TTA noise comes from a
+``torch.Generator`` seeded from (seed, slab index), and on a mesh from
+(that seed, pass, shard), so a resumed run draws the noise an uninterrupted
+run drew.
 Binarization crops to ``out_shape`` and erodes each chunk with
 ``erosion_iters`` planes of z-context, so chunk cuts erode exactly as the
 whole volume does.
@@ -42,6 +45,7 @@ from delivr_cfos_tpu_torch.engine.sliding_window import (
 )
 from delivr_cfos_tpu_torch.models.basic_unet import BasicUNet, BasicUNetConfig
 from delivr_cfos_tpu_torch.ops.morphology import binary_erosion_cross
+from delivr_cfos_tpu_torch.parallel.sharded_inference import sharded_accumulate
 
 ENGINE = "delivr_cfos_tpu_torch"  # sidecars of other engines never match
 SLAB_Z_STARTS = 4  # window grid rows per slab, at most
@@ -83,17 +87,19 @@ def slab_batch_size(cfg: SlidingWindowConfig, model_cfg: BasicUNetConfig,
 
 
 def resume_signature(cfg: SlidingWindowConfig, volume_shape, out_shape,
-                     slab_z_starts: int, batch: int) -> dict:
+                     slab_z_starts: int, batch: int, spatial_shards: int = 1) -> dict:
     """The resume sidecar's signature: every ``SlidingWindowConfig`` field,
     the resolved window batch (the noise a chunk draws depends on how the
-    windows are batched), the slab depth and the shapes, and the engine.
-    A sidecar of the JAX package never matches: its noise and summation
-    order differ."""
+    windows are batched), the slab depth and the shapes, the shard count of
+    a mesh run (its noise and summation order differ from one device's),
+    and the engine. A sidecar of the JAX package never matches: its noise
+    and summation order differ."""
     sig = {
         "engine": ENGINE,
         **dataclasses.asdict(cfg),
         "batch": batch,
         "slab_z_starts": slab_z_starts,
+        "spatial_shards": spatial_shards,
         "shape": list(volume_shape),
         "out_shape": list(out_shape),
     }
@@ -278,7 +284,8 @@ def infer_volume_streaming(model: BasicUNet, volume,
                            sigmoid_out: np.ndarray | None = None,
                            out_shape: tuple | None = None,
                            resume_state_path: str | None = None,
-                           prefetch: bool = True):
+                           prefetch: bool = True, mesh=None,
+                           mesh_axis: str = "sp"):
     """Stream a host (Z, Y, X) array (typically an ``np.memmap``) through the
     sliding-window engine on the model's device, in slabs of
     ``slab_z_starts`` window rows (None: ``slab_depth``).
@@ -296,7 +303,13 @@ def infer_volume_streaming(model: BasicUNet, volume,
     chunk is written. A restart with a matching signature recomputes only
     the slabs that rebuild the on-device overlap carry and continues; a
     mismatched one starts from scratch. The sidecar is deleted on
-    completion. The volume must be at least roi-sized."""
+    completion. The volume must be at least roi-sized.
+
+    ``mesh``: a ``parallel.mesh.Mesh``; each slab's passes then run
+    z-sharded over its ``mesh_axis`` devices (``sharded_accumulate`` on the
+    slab, whose own window grid is its rows of the volume's), and the
+    result is added into the slab's accumulators on the model's device:
+    volumes past one card's memory use every card of the mesh."""
     device = next(model.parameters()).device
     roi = tuple(cfg.roi)
     z_img, y_img, x_img = volume.shape
@@ -317,7 +330,8 @@ def infer_volume_streaming(model: BasicUNet, volume,
     imp = _importance_for(cfg, device)
     batch = slab_batch_size(cfg, model_cfg, volume.shape, volume.dtype.itemsize,
                             slab_z_starts, device)
-    sig = resume_signature(cfg, volume.shape, out_shape, slab_z_starts, batch)
+    shards = {} if mesh is None else {"spatial_shards": mesh.shape[mesh_axis]}
+    sig = resume_signature(cfg, volume.shape, out_shape, slab_z_starts, batch, **shards)
     start_slab, regen_before_slab, finalized = _resume_point(
         resume_state_path, sig, z_starts, slab_z_starts, n_slabs, roi[0]
     )
@@ -350,11 +364,20 @@ def infer_volume_streaming(model: BasicUNet, volume,
             if carry_acc is not None:
                 acc[: carry_acc.shape[0]].copy_(carry_acc)
                 cnt[: carry_cnt.shape[0]].copy_(carry_cnt)
-            gen = torch.Generator(device=device)
-            gen.manual_seed(_slab_seed(cfg.seed, slab_i))
-            dims = [[z - slab_z0 for z in starts_z], ys, xs]
-            _accumulate(model, vol, u16, acc, cnt, dims, interval, gen, cfg,
-                        batch, model_cfg, imp)
+            if mesh is None:
+                gen = torch.Generator(device=device)
+                gen.manual_seed(_slab_seed(cfg.seed, slab_i))
+                dims = [[z - slab_z0 for z in starts_z], ys, xs]
+                _accumulate(model, vol, u16, acc, cnt, dims, interval, gen, cfg,
+                            batch, model_cfg, imp)
+            else:
+                acc_s, cnt_s = sharded_accumulate(
+                    mesh, model, vol, cfg, model_cfg, mesh_axis,
+                    seed=_slab_seed(cfg.seed, slab_i), batch=batch, u16=u16,
+                )
+                acc += acc_s
+                cnt += cnt_s
+                del acc_s, cnt_s
 
             # voxels below the next slab's first window start get no more
             # contributions: [finalized, next_z0) is final

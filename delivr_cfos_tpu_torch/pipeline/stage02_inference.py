@@ -11,8 +11,10 @@ Weights may be the reference torch .tar checkpoint or the JAX package's .npz.
 A volume runs in device memory when ``FLAGS.LOAD_ALL_RAM`` is set and it fits
 (the reference's switch, inference.py:240-247), else it streams z-slabs
 through ``engine/streaming.py`` straight into the disk outputs, resuming from
-the sidecar ``streaming_resume.json``. Spatial sharding over several devices
-raises NotImplementedError: a later item of ROADMAP.md ("Multi-GPU").
+the sidecar ``streaming_resume.json``. With ``blob_detection.spatial_shards``
+above 1, or a caller's mesh of several devices, both branches run z-sharded
+over a device mesh (``parallel/sharded_inference.py``), as the JAX package's
+do.
 
 A marker file, ``binary_segmentations/inference_in_progress``, exists from
 before ``binaries.npy`` is opened until its last write is flushed, so an
@@ -43,6 +45,8 @@ from delivr_cfos_tpu_torch.models.basic_unet import (
 )
 from delivr_cfos_tpu_torch.models.convert import load_weights
 from delivr_cfos_tpu_torch.ops.morphology import binarize_logits
+from delivr_cfos_tpu_torch.parallel.mesh import make_mesh, visible_devices
+from delivr_cfos_tpu_torch.parallel.sharded_inference import sharded_infer_volume
 from delivr_cfos_tpu_torch.utils.device import resolve_device
 from delivr_cfos_tpu_torch.utils.io.npy import open_memmap
 from delivr_cfos_tpu_torch.utils.logging import log
@@ -92,17 +96,38 @@ def sliding_window_config(cfg: PipelineConfig) -> SlidingWindowConfig:
 
 def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
                   params=None, model_cfg: BasicUNetConfig | None = None,
-                  device=None) -> str:
+                  device=None, mesh=None, devices=None) -> str:
     """Returns the session path ({blob_output}/{mouse}). ``params``: a
     MONAI-keyed state dict (``models/convert.py::load_weights``); ``device``:
-    None means CUDA."""
+    None means CUDA.
+
+    Spatial sharding, as the JAX package decides it: a caller's ``mesh``
+    (``parallel/mesh.py``; the runner's slice of a ``dcn_slices`` run) of
+    several devices shards over them, one of a single device runs on that
+    device unsharded; else ``blob_detection.spatial_shards`` above 1 shards
+    over that many of ``devices`` (default: every visible CUDA device, or
+    ``[device]`` off CUDA) where there are as many, and runs on ``device``
+    with a warning where there are not. With a mesh, the model and the
+    outputs live on its first device."""
     device = resolve_device(device)
     bd = cfg.blob_detection
-    if bd.spatial_shards > 1:
-        raise NotImplementedError(
-            "spatial_shards > 1: sharded stage 2 is not ported yet "
-            "(ROADMAP.md, Modules to port: 'Multi-GPU')"
-        )
+    if mesh is not None:
+        device = resolve_device(mesh.devices.flat[0])
+        if mesh.devices.size > 1:
+            log(f"Spatial sharding over caller mesh ({mesh.devices.size} chips)")
+        else:
+            mesh = None
+    elif bd.spatial_shards > 1:
+        devices = visible_devices(device) if devices is None else list(devices)
+        if len(devices) >= bd.spatial_shards:
+            mesh = make_mesh({"sp": bd.spatial_shards}, devices=devices)
+            device = resolve_device(mesh.devices.flat[0])
+            log(f"Spatial sharding over {bd.spatial_shards} chips")
+        else:
+            log(
+                f"WARNING: spatial_shards={bd.spatial_shards} but only "
+                f"{len(devices)} devices — running single-chip"
+            )
     input_path = os.path.join(
         bd.input_location, mouse_name, "masked_niftis", "masked_nifti.npy"
     )
@@ -154,9 +179,14 @@ def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
             os.remove(resume_path)  # no sigmoid output to resume into
 
     if whole_volume_ok:
-        mean_logits, _ = infer_volume(
-            model, np.asarray(volume), sw_cfg, model_cfg, return_binary=False
-        )
+        if mesh is not None:
+            mean_logits = sharded_infer_volume(
+                mesh, model, np.asarray(volume), sw_cfg, model_cfg
+            )
+        else:
+            mean_logits, _ = infer_volume(
+                model, np.asarray(volume), sw_cfg, model_cfg, return_binary=False
+            )
         logits_real = mean_logits[:real_z, :real_y, :real_x]
         # binarization over the REAL (unpadded) extent, reference create_nifti_seg
         input_real = torch.from_numpy(
@@ -179,7 +209,7 @@ def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
         infer_volume_streaming(
             model, volume, sw_cfg, model_cfg, binary_out=out,
             sigmoid_out=activated, out_shape=real,
-            resume_state_path=resume_path,
+            resume_state_path=resume_path, mesh=mesh,
         )
     if activated is not None:
         activated.flush()

@@ -11,7 +11,8 @@ containers, .xlsx and .npz, member by member: the zip stamps each member
 with the clock's time), stage 2's binaries wherever the JAX package's mean
 logit lies outside the ±1e-3 band at the sigmoid cut (both in parity on the
 CPU; sigmoids within 1e-4). Also: reruns skip, the SAVE_* cleanup,
-``dcn_slices > 1`` raises, ``$DELIVR_TRACE_DIR`` writes a trace, and the
+``dcn_slices > 1`` on one device runs undistributed, ``$DELIVR_TRACE_DIR``
+writes a trace, and the
 repair of a failed stage 2 that the JAX runner would take as finished. The
 JAX side runs its host labelers (``tests/jax_host_labelers.py``).
 """
@@ -319,13 +320,17 @@ def test_save_flags_clean_up_like_jax(tmp_path):
 
 
 def test_dcn_slices_above_one_raises_before_any_output(tmp_path):
+    """dcn_slices 2 is ported now: on the one CPU device the runner logs the
+    JAX runner's warning and runs undistributed
+    (tests/test_torch_stage02_sharded.py distributes over CPU meshes)."""
     raw = str(tmp_path / "raw")
     os.makedirs(raw)
-    c = _config(raw, str(tmp_path / "out"))
+    c = _config(raw, str(tmp_path / "out"), MASK_DOWNSAMPLE=False, POSTPROCESSING=False,
+                ATLAS_ALIGNMENT=False, REGION_ASSIGNMENT=False, VISUALIZATION=False)
     c["blob_detection"]["dcn_slices"] = 2
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        run_pipeline(PipelineConfig.from_dict(c), device="cpu")
-    assert not os.path.exists(tmp_path / "out")
+    out = _capture(run_pipeline, PipelineConfig.from_dict(c), device="cpu")
+    assert "WARNING: dcn_slices=2 but only 1 devices — running undistributed" in out
+    assert "DELIVR Done." in out
 
 
 def test_without_a_card_the_runner_raises(tmp_path):

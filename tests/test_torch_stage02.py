@@ -5,7 +5,9 @@ Binaries must be equal wherever the JAX mean logit lies outside the parity
 band (|logit| > 1e-3: the f32 outputs agree to ~1e-4, so only voxels at the
 sigmoid cut may fall either way); the test reports how many lie inside."""
 
+import contextlib
 import dataclasses
+import io
 import os
 import subprocess
 import sys
@@ -141,18 +143,26 @@ def test_resolve_model_config_modes():
 
 
 def test_streaming_and_sharded_branches_are_not_ported(brain):
-    """Only the sharded branch is left unported: the streaming branch runs
-    (tests/test_torch_streaming.py holds it against the JAX package), and
-    spatial_shards > 1 raises before any output is made, with or without
-    LOAD_ALL_RAM."""
+    """Both branches are ported now: with spatial_shards 2 on the one CPU
+    device, in memory and streamed, stage 2 logs the JAX package's warning
+    and runs single-device, with the outputs of the unsharded run
+    (tests/test_torch_stage02_sharded.py shards over CPU meshes)."""
     stack = (1, 1, *REAL)
     for load_all_ram in (True, False):
-        sharded = brain(f"sharded_{load_all_ram}/", spatial_shards=2)
-        sharded["FLAGS"]["LOAD_ALL_RAM"] = load_all_ram
-        cfg = PipelineConfig.from_dict(sharded)
-        with pytest.raises(NotImplementedError, match="Multi-GPU"):
-            run_inference(cfg, "brain", stack, device="cpu")
-        assert not os.path.exists(cfg.blob_detection.output_location)
+        runs = []
+        for shards in (1, 2):
+            raw = brain(f"sharded_{load_all_ram}_{shards}/", spatial_shards=shards)
+            raw["FLAGS"]["LOAD_ALL_RAM"] = load_all_ram
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                session = run_inference(PipelineConfig.from_dict(raw), "brain", stack,
+                                        device="cpu")
+            runs.append((_outputs(session), buf.getvalue()))
+        (one_bin, one_sig), _ = runs[0]
+        (two_bin, two_sig), out = runs[1]
+        assert "WARNING: spatial_shards=2 but only 1 devices — running single-chip" in out
+        np.testing.assert_array_equal(two_bin, one_bin)
+        np.testing.assert_array_equal(two_sig, one_sig)
 
 
 def test_cuda_requested_without_a_card_raises(brain):
@@ -164,7 +174,7 @@ def test_cuda_requested_without_a_card_raises(brain):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter: tests/conftest.py has imported JAX here. Stages
-    1-6, their modules, the runner, the CLI, and chip_smoke.py."""
+    1-6, their modules, the runner, the CLI, parallel/*, and chip_smoke.py."""
     code = (
         "import sys\n"
         "import delivr_cfos_tpu_torch.pipeline.stage02_inference\n"
@@ -189,6 +199,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import delivr_cfos_tpu_torch.utils.profiling\n"
         "import delivr_cfos_tpu_torch.analysis.ontology\n"
         "import delivr_cfos_tpu_torch.utils.io.xlsx\n"
+        "import delivr_cfos_tpu_torch.parallel\n"
+        "import delivr_cfos_tpu_torch.parallel.mesh\n"
+        "import delivr_cfos_tpu_torch.parallel.sharded_inference\n"
+        "import delivr_cfos_tpu_torch.parallel.sharded_cc\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'delivr_cfos_tpu' or m.startswith('delivr_cfos_tpu.')]\n"
