@@ -164,6 +164,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
              every component a region: RGB, region-id and depth-map stacks
              byte-equal between the card and the CPU; seconds by step
              ("stage6").
+13b. train — training (training/, parallel/sharded_training.py), after
+             pipeline: (a) the full-width parity BasicUNet (32, 32, 64, 128,
+             256, 32), batch 2 of (96, 96, 64) crops of phase (d)'s volume,
+             2 warm-up and 10 timed Adam steps (seconds a step, voxels/s,
+             peak GiB), every loss and gradient finite and all 36
+             InstanceNorm tensors with a gradient, and whether two steps
+             from one state agree to the bit; (b) TINY, batch 2 of 32³, three
+             Adam steps on the card and on the CPU from the same weights
+             (losses within rtol 1e-5, parameters within the CPU tests'
+             bounds); (c) bench.py's recipe at full width: lr 1e-2, 150 steps
+             of four 32³ crops, two centred on a blob, from the port's
+             batch_iterator over seeded 100³ .nii.gz pairs in the
+             reference's raw/ and gt/ layout; the last loss below the first,
+             a checkpoint at step 75 restored and stepped to the same loss to
+             the bit, the resumed run's final parameters against the
+             uninterrupted run's; (d) export_npz of (c)'s weights and
+             run_inference_from_nifti on the card on a seeded (192, 480, 384)
+             .nii with 300 blobs: 18 conv3d_cs (17 packed, 1 direct), 17
+             conv3d_cs_pack and 4 deconv2x_cs launches per forward batch, no
+             library convolution in the trace, binaries equal to a parity
+             run's outside the 1e-3 logit band, stage-3 cell counts fast and
+             parity and the share of blob centres found (printed, not held);
+             (e) the dp×sp step on {"dp": 2, "sp": 2} naming the card four
+             times, full width, batch 2 of (64, 96, 96), against one device:
+             loss within rtol 1e-4, the decoder's gradients within 1e-4 of
+             each tensor's max |g| and the encoder's, behind a max-pool,
+             within ENCODER_GRAD_BOUND (near-ties; the single step's own
+             gradients under a one-ULP nudge of its input printed beside),
+             seconds a step.
 14. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
              conv3d_cs_direct, conv3d_cs_pack, instance_norm_mish,
              deconv2x_cs), the nvidia-smi line, then the result line.
@@ -2045,6 +2074,349 @@ def pipeline_phase(card, sd, dev, keep, warped, batch):
         stage6_card_cpu(card, keep, tmp, assets[1])
 
 
+TRAIN_FULL = dict(batch=2, crop=ROI, warm=2, steps=10)  # part (a)
+TRAIN_RECIPE = dict(lr=1e-2, steps=150, batch=4, crop=(32, 32, 32), resume_at=75)  # bench.py:203-255
+TRAIN_PATCHES = 6  # seeded 100³ patch pairs in the reference's raw/ and gt/ layout
+NIFTI_BLOBS = 300  # bright blobs in phase (d)'s (192, 480, 384) volume
+SHARDED_TRAIN = dict(mesh={"dp": 2, "sp": 2}, shape=(2, 64, 96, 96, 1))  # part (e)
+
+
+def blob_volume(shape, n_blobs, rng, dtype=np.float64):
+    """bench.py's training fixture: background uniform in 10..310, blobs of
+    (2, 6, 6) voxels at 50000; returns (volume, blob centres)."""
+    vol = (rng.random(shape) * 300 + 10).astype(dtype)
+    centres = rng.integers((2, 5, 5), np.array(shape) - (2, 5, 5), (n_blobs, 3))
+    for c in centres:
+        vol[c[0] - 1:c[0] + 1, c[1] - 3:c[1] + 3, c[2] - 3:c[2] + 3] = 50000
+    return vol, centres
+
+
+def write_training_patches(root, rng):
+    """``TRAIN_PATCHES`` 100³ float64 raw patches and their uint8 gt (raw >
+    40000; the first RGB-coded) as .nii.gz under root/patches/{raw,gt}, and
+    32³ crops centred on three blobs of each under root/centred/{raw,gt}."""
+    from delivr_cfos_tpu_torch.utils.io.nifti import write_nifti_raw
+
+    c = TRAIN_RECIPE["crop"][0]
+    for sub in ("patches", "centred"):
+        for kind in ("raw", "gt"):
+            os.makedirs(os.path.join(root, sub, kind))
+    for i in range(TRAIN_PATCHES):
+        raw, centres = blob_volume((100, 100, 100), 12, rng)
+        gt = (raw > 40000).astype(np.uint8)
+        name = f"patchvolume_{i:03d}.nii.gz"
+        write_nifti_raw(os.path.join(root, "patches", "raw", name), raw)
+        write_nifti_raw(os.path.join(root, "patches", "gt", name),
+                        np.stack([gt * 255, gt * 0, gt * 9], -1) if i == 0 else gt)
+        for j, cc in enumerate(centres[:3]):
+            sl = tuple(slice(s, s + c) for s in np.clip(cc - c // 2, 0, 100 - c))
+            name = f"patchvolume_{i:03d}_{j}.nii.gz"
+            write_nifti_raw(os.path.join(root, "centred", "raw", name), raw[sl])
+            write_nifti_raw(os.path.join(root, "centred", "gt", name), gt[sl])
+
+
+def recipe_batches(root, n, seed=SEED):
+    """``n`` batches of bench.py's recipe through the port's loader: four
+    32³ crops, the even ones centred on a blob, the odd ones anywhere."""
+    from delivr_cfos_tpu_torch.training.data import batch_iterator, list_patch_pairs
+
+    anywhere = batch_iterator(list_patch_pairs(os.path.join(root, "patches")), 2,
+                              crop=TRAIN_RECIPE["crop"], seed=seed)
+    centred = batch_iterator(list_patch_pairs(os.path.join(root, "centred")), 2,
+                             seed=seed + 1)
+    out = []
+    for _, (xa, ya), (xc, yc) in zip(range(n), anywhere, centred):
+        out.append((np.stack([xc[0], xa[0], xc[1], xa[1]]),
+                    np.stack([yc[0], ya[0], yc[1], ya[1]])))
+    return out
+
+
+def near_zero_bound_error(model, ref, grads, lr, steps) -> tuple:
+    """The CPU tests' bound on parameters after Adam steps: 1e-5, but
+    2·lr·steps on the pre-InstanceNorm conv biases and on elements whose
+    gradient at some step fell under 1e-3 of the tensor's max |g| (Adam
+    turns rounding there into about ±lr a step). Returns (max error under the
+    tight bound, max error under the loose one)."""
+    tight = loose = 0.0
+    for (n, p), q in zip(model.named_parameters(), ref.parameters()):
+        err = (p.detach().cpu() - q.detach().cpu()).abs()
+        rel = torch.stack([g[n].abs() / g[n].abs().max() for g in grads])
+        near_zero = (rel.min(0).values < 1e-3) | n.endswith(".conv.bias")
+        tight = max(tight, float(torch.where(near_zero, 0.0, err).max()))
+        loose = max(loose, float(err.max()))
+    return tight, loose
+
+
+def behind_pool(name: str) -> bool:
+    """Whether a parameter's gradient flows back through a max-pool: the
+    encoder's. A max-pool sends its gradient to its window's largest value,
+    so where two values of a window lie within rounding of each other, a
+    forward that rounds otherwise (sums in another order) may send it to the
+    other voxel. At (2, 64, 96, 96) and full width that moved the encoder's
+    gradients by 3.5e-3 of their max |g| on the CPU, and by 6.7e-5 on the
+    card (the single step's own under a one-ULP nudge of its input: 2.0e-5),
+    so the card's bound is 1e-3, the decoder's 1e-4."""
+    return name.startswith(("conv_0.", "down_"))
+
+
+ENCODER_GRAD_BOUND = 1e-3  # gradients behind a max-pool, of each tensor's max |g|
+
+
+def grad_error(model, ref, which=lambda name: True) -> float:
+    """The largest gradient difference over the parameters ``which`` names,
+    each tensor's over its max |g| in ``ref`` (the pre-InstanceNorm conv
+    biases, true gradient 0, over the model's largest)."""
+    top = max(float(q.grad.abs().max()) for q in ref.parameters())
+    out = 0.0
+    for (n, p), q in zip(model.named_parameters(), ref.parameters()):
+        if which(n):
+            scale = top if n.endswith(".conv.bias") else float(q.grad.abs().max())
+            out = max(out, float((p.grad.to(q.grad.device) - q.grad).abs().max()) / scale)
+    return out
+
+
+def train_phase(card, dev, batch):
+    """Phase 13b: training. (a) Adam steps of the full-width parity
+    BasicUNet at the inference window; (b) the card against the CPU at the
+    TINY width; (c) bench.py's training recipe through the port's loader,
+    with a checkpoint and a resume; (d) NIfTI inference with (c)'s weights
+    through the hand-written kernels; (e) the dp×sp step on a mesh that
+    names the card four times against one device."""
+    import copy
+
+    from delivr_cfos_tpu_torch.engine.sliding_window import SlidingWindowConfig, infer_volume
+    from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig, build_model
+    from delivr_cfos_tpu_torch.models.convert import load_weights
+    from delivr_cfos_tpu_torch.ops.connected_components import label_volume_host
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack, conv3d_cs_packed,
+    )
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
+    from delivr_cfos_tpu_torch.parallel.mesh import make_mesh
+    from delivr_cfos_tpu_torch.pipeline.stage02_inference import run_inference_from_nifti
+    from delivr_cfos_tpu_torch.training.train import (
+        TrainConfig, export_npz, make_optimizer, make_train_step, restore_checkpoint,
+        save_checkpoint,
+    )
+    from delivr_cfos_tpu_torch.utils.io.nifti import write_nifti
+
+    rng = np.random.default_rng(SEED)
+    t_phase = time.perf_counter()
+    nifti_vol, nifti_centres = blob_volume(VOLUME, NIFTI_BLOBS, rng, np.uint16)
+
+    # (a) full width at the inference window
+    cfg = TrainConfig()
+    init_state, step = make_train_step(cfg)
+    model, optimizer = init_state()
+    n_b, (cz, cy, cx) = TRAIN_FULL["batch"], TRAIN_FULL["crop"]
+    y0, x0 = (VOLUME[1] - cy) // 2, (VOLUME[2] - cx) // 2
+    x = np.stack([nifti_vol[z:z + cz, y0:y0 + cy, x0:x0 + cx]
+                  for z in (0, VOLUME[0] - cz)])[..., None]
+    x = x.astype(np.float32)
+    y = (x > 40000).astype(np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [float(step(model, optimizer, x, y)) for _ in range(TRAIN_FULL["warm"])]
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_FULL["steps"]):
+        loss = step(model, optimizer, x, y)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / TRAIN_FULL["steps"]
+    losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grads_finite = all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                       for p in model.parameters())
+    norm_grads = [float(p.grad.abs().max()) for n, p in model.named_parameters()
+                  if ".adn.N." in n]
+    # where a step's time goes: one more step, traced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(model, optimizer, x, y)
+        torch.cuda.synchronize()
+    emit(dict(profile_summary(prof, time.perf_counter() - t0), card=card,
+              run="train step, full width"))
+    del prof
+    # two steps from one state: equal to the bit?
+    twin = copy.deepcopy(model)
+    twin_opt = make_optimizer(cfg, twin.parameters())
+    twin_opt.load_state_dict(copy.deepcopy(optimizer.state_dict()))  # not views of its state
+    la, lb = step(model, optimizer, x, y), step(twin, twin_opt, x, y)
+    pairs = list(zip(model.parameters(), twin.parameters()))
+    repeat = dict(loss_equal=bool(la == lb),
+                  grads_equal=all(torch.equal(p.grad, q.grad) for p, q in pairs),
+                  grad_max_rel_dev=grad_error(twin, model),
+                  params_equal=all(torch.equal(p, q) for p, q in pairs),
+                  param_max_dev=max(float((p - q).detach().abs().max()) for p, q in pairs))
+    emit(dict(phase="train", part="a_full_width", card=card, features=list(cfg.model.features),
+              batch=n_b, crop=list(TRAIN_FULL["crop"]), warm_steps=TRAIN_FULL["warm"],
+              timed_steps=TRAIN_FULL["steps"], seconds_per_step=sec,
+              voxels_per_s=n_b * cz * cy * cx / sec, peak_gib=peak, losses=losses,
+              grads_finite=grads_finite, norm_tensors=len(norm_grads),
+              norm_tensors_with_zero_grad=sum(g == 0 for g in norm_grads),
+              repeat_step_from_one_state=repeat))
+    if not (all(math.isfinite(v) for v in losses) and grads_finite and len(norm_grads) == 36
+            and all(g > 0 for g in norm_grads)):
+        raise AssertionError("full-width training: a loss or a gradient is not finite, or an "
+                             "InstanceNorm tensor got no gradient")
+    del model, optimizer, twin, twin_opt
+    torch.cuda.empty_cache()
+
+    # (b) the card against the CPU, TINY, three Adam steps from one state
+    tiny = TrainConfig(model=BasicUNetConfig(features=(4, 4, 8, 16, 32, 4)))
+    xb = (np.random.default_rng(SEED + 1).random((2, 32, 32, 32, 1)) * 100).astype(np.float32)
+    yb = (xb > 80).astype(np.float32)
+    card_init, card_step = make_train_step(tiny)
+    cpu_init, cpu_step = make_train_step(tiny, device="cpu")
+    (cm, co), (hm, ho) = card_init(), cpu_init()
+    card_losses, cpu_losses, grads = [], [], []
+    for _ in range(3):
+        card_losses.append(float(card_step(cm, co, xb, yb)))
+        cpu_losses.append(float(cpu_step(hm, ho, xb, yb)))
+        grads.append({n: p.grad.clone() for n, p in hm.named_parameters()})
+    tight, loose = near_zero_bound_error(cm, hm, grads, tiny.learning_rate, 3)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    emit(dict(phase="train", part="b_card_cpu", card=card, features=list(tiny.model.features),
+              card_losses=card_losses, cpu_losses=cpu_losses, loss_max_rel_dev=loss_rel,
+              param_max_dev_tight=tight, param_max_dev_near_zero=loose))
+    if loss_rel > 1e-5 or tight > 1e-5 or loose > 2 * tiny.learning_rate * 3:
+        raise AssertionError("the card's TINY steps part from the CPU's beyond the CPU tests' bounds")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) bench.py's recipe at full width through the port's loader
+        t0 = time.perf_counter()
+        write_training_patches(os.path.join(tmp, "data"), rng)
+        batches = recipe_batches(os.path.join(tmp, "data"), TRAIN_RECIPE["steps"])
+        sec_data = time.perf_counter() - t0
+        rcfg = TrainConfig(learning_rate=TRAIN_RECIPE["lr"])
+        init_state, step = make_train_step(rcfg)
+        model, optimizer = init_state()
+        ckpt = os.path.join(tmp, "ckpt")
+        at = TRAIN_RECIPE["resume_at"]
+        recipe_losses = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, (xr, yr) in enumerate(batches):
+            if i == at:
+                save_checkpoint(ckpt, at, model, optimizer)
+            recipe_losses.append(float(step(model, optimizer, xr, yr)))
+        sec_recipe = time.perf_counter() - t0
+        resumed, resumed_opt, start = restore_checkpoint(ckpt, init_state)
+        resumed_losses = [float(step(resumed, resumed_opt, xr, yr)) for xr, yr in batches[start:]]
+        resume_dev = max(float((p - q).detach().abs().max())
+                         for p, q in zip(model.parameters(), resumed.parameters()))
+        emit(dict(phase="train", part="c_recipe", card=card, features=list(rcfg.model.features),
+                  lr=rcfg.learning_rate, steps=len(batches), batch=TRAIN_RECIPE["batch"],
+                  crop=list(TRAIN_RECIPE["crop"]), patches=TRAIN_PATCHES,
+                  seconds_data=sec_data, seconds_train=sec_recipe,
+                  seconds_per_step=sec_recipe / len(batches),
+                  loss_first=recipe_losses[0], loss_last=recipe_losses[-1],
+                  losses_every_25=recipe_losses[::25], resumed_from=start,
+                  loss_after_resume=resumed_losses[0], loss_uninterrupted=recipe_losses[start],
+                  resumed_final_param_max_dev=resume_dev))
+        if not recipe_losses[-1] < recipe_losses[0]:
+            raise AssertionError("the recipe's loss did not fall over 150 steps")
+        if start != at or resumed_losses[0] != recipe_losses[start]:
+            raise AssertionError("the restored checkpoint does not step as the run it saved")
+        del resumed, resumed_opt, batches
+
+        # (d) NIfTI inference with (c)'s weights, fast on the kernels, and parity
+        weights = export_npz(model, os.path.join(tmp, "trained.npz"))
+        del model, optimizer
+        nii = os.path.join(tmp, "brain.nii")
+        write_nifti(nii, np.transpose(nifti_vol, (1, 2, 0)))  # (z, y, x) → (y, x, z)
+        n_active, n_batches = forward_batches(nifti_vol, batch, dev)
+        conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
+        conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_gather.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            bin_fast = run_inference_from_nifti(nii, weights, os.path.join(tmp, "fast.npy"),
+                                                window=ROI)
+        sec_fast = time.perf_counter() - t0
+        counts = (conv3d_cs.launches, conv3d_cs_packed.launches, conv3d_cs_direct.launches,
+                  conv3d_cs_gather.launches, conv3d_cs_pack.launches, deconv2x_cs.launches)
+        prof_d = profile_summary(prof, sec_fast)
+        del prof
+        on_disk = np.load(os.path.join(tmp, "fast.npy"))
+        sd = load_weights(weights)
+        par_cfg = BasicUNetConfig(precision="parity")
+        t0 = time.perf_counter()
+        logits_par, bin_par = infer_volume(build_model(sd, par_cfg, dev), nifti_vol,
+                                           SlidingWindowConfig(roi=ROI), par_cfg)
+        sec_par = time.perf_counter() - t0
+        band = (logits_par.abs() <= BAND).cpu().numpy()
+        bin_par = bin_par.cpu().numpy()
+        del logits_par
+        differ = bin_fast != bin_par
+        n_fast, n_par = label_volume_host(bin_fast)[1], label_volume_host(bin_par)[1]
+        found = float(np.mean([bin_fast[tuple(c)] for c in nifti_centres]))
+        emit(dict(phase="train", part="d_nifti_inference", card=card, volume=list(VOLUME),
+                  blobs=NIFTI_BLOBS, batch=batch, active_windows=n_active,
+                  forward_batches=n_batches, conv3d_cs_launches=counts[0],
+                  conv3d_cs_packed_launches=counts[1], conv3d_cs_direct_launches=counts[2],
+                  conv3d_cs_gather_launches=counts[3], conv3d_cs_pack_launches=counts[4],
+                  deconv2x_cs_launches=counts[5], library_conv=prof_d["library_conv"],
+                  library_transposed_conv=prof_d["library_transposed_conv"],
+                  seconds_fast_traced=sec_fast, seconds_parity=sec_par,
+                  positives_fast=int(bin_fast.sum()), positives_parity=int(bin_par.sum()),
+                  differing_voxels=int(differ.sum()), voxels_in_band=int(band.sum()),
+                  equal_outside_band=bool((~differ | band).all()),
+                  stage3_cells_fast=int(n_fast), stage3_cells_parity=int(n_par),
+                  blob_centres_found=found))
+        if n_batches == 0 or counts != (18 * n_batches, PACKED * n_batches, n_batches, 0,
+                                        PACKED * n_batches, 4 * n_batches):
+            raise AssertionError(f"NIfTI inference: launches {counts} for {n_batches} "
+                                 "forward batches")
+        if prof_d["library_conv"] or prof_d["library_transposed_conv"]:
+            raise AssertionError("NIfTI inference ran a library convolution")
+        if not (np.array_equal(on_disk, bin_fast) and bin_fast.shape == VOLUME
+                and (~differ | band).all()):
+            raise AssertionError("NIfTI inference: binaries.npy differs from the returned "
+                                 "binaries or from parity outside the logit band")
+    del bin_fast, bin_par, band, differ, on_disk
+    torch.cuda.empty_cache()
+
+    # (e) the dp×sp step on a mesh naming the card four times, against one device
+    xe = (np.random.default_rng(SEED + 2).random(SHARDED_TRAIN["shape"]) * 100).astype(np.float32)
+    ye = (xe > 80).astype(np.float32)
+    init_1, step_1 = make_train_step(cfg)
+    one, one_opt = init_1()
+    mesh = make_mesh(SHARDED_TRAIN["mesh"], devices=["cuda:0"] * 4)
+    init_s, step_s = make_train_step(cfg, mesh)
+    shard, shard_opt = init_s()
+    nudged, nudged_opt = init_1()  # the single step's own sensitivity at near-ties
+    step_1(nudged, nudged_opt, np.nextafter(xe, np.float32(np.inf)), ye)
+    secs = {}
+    for name, fn, m, o in (("single", step_1, one, one_opt), ("sharded", step_s, shard, shard_opt)):
+        secs[name] = [float(fn(m, o, xe, ye))]
+    g_dec = grad_error(shard, one, lambda n: not behind_pool(n))
+    g_enc = grad_error(shard, one, behind_pool)
+    g_nudge = (grad_error(nudged, one, lambda n: not behind_pool(n)),
+               grad_error(nudged, one, behind_pool))
+    del nudged, nudged_opt
+    for name, fn, m, o in (("single", step_1, one, one_opt), ("sharded", step_s, shard, shard_opt)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(m, o, xe, ye)  # a second step, timed
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+    loss_rel = abs(secs["sharded"][0] - secs["single"][0]) / abs(secs["single"][0])
+    emit(dict(phase="train", part="e_sharded", card=card, mesh=SHARDED_TRAIN["mesh"],
+              devices="cuda:0 four times", shape=list(SHARDED_TRAIN["shape"]),
+              loss_single=secs["single"][0], loss_sharded=secs["sharded"][0],
+              loss_rel_dev=loss_rel, grad_max_rel_dev_decoder=g_dec,
+              grad_max_rel_dev_encoder=g_enc, encoder_bound=ENCODER_GRAD_BOUND,
+              single_nudged_one_ulp_grad_dev=dict(decoder=g_nudge[0], encoder=g_nudge[1]),
+              seconds_single_step=secs["single"][1],
+              seconds_sharded_step=secs["sharded"][1],
+              seconds_phase=time.perf_counter() - t_phase))
+    if loss_rel > 1e-4 or g_dec > 1e-4 or g_enc > ENCODER_GRAD_BOUND:
+        raise AssertionError("the dp×sp step parts from the single-device step")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2311,6 +2683,10 @@ def main() -> int:
     pipeline_phase(smi, sd, dev, keep.name, warped, batch)
     keep.cleanup()
     del warped
+    torch.cuda.empty_cache()
+
+    # --- 13b. training, and NIfTI inference with the trained weights --------
+    train_phase(smi, dev, batch)
     torch.cuda.empty_cache()
 
     packed = [r for r in rows + extra if r["path"] == "packed"]

@@ -13,6 +13,8 @@ per-cell table (``pipeline/stage03_count_blobs.py``); stage 4, atlas
 registration and cell warping (``pipeline/stage04_atlas_align.py``); stage
 5, region tables and heatmaps (``pipeline/stage05_region_assignment.py``);
 stage 6, region-colored and depth-map stacks
-(``pipeline/stage06_visualization.py``). Every entry point runs on the card
-unless asked for the CPU (``device="cpu"``, ``--device cpu``).
+(``pipeline/stage06_visualization.py``). ``training/`` trains the BasicUNet
+(Adam on one device or over a dp×sp mesh, checkpoints, the ``.npz`` stage 2
+loads). Every entry point runs on the card unless asked for the CPU
+(``device="cpu"``, ``--device cpu``).
 """

@@ -87,11 +87,12 @@ class _ADN(nn.Module):
     def forward(self, x, fused: bool = False):
         """Statistics and arithmetic in f32, output in ``x``'s dtype. Unfused,
         the JAX package's two roundings (after the norm, after mish); fused,
-        the kernel's one."""
-        scale, bias = self.N.weight.detach(), self.N.bias.detach()
+        the kernel's one. Unfused, the scale and bias get gradients (training);
+        the kernel has no backward, so the fused path takes them detached."""
         if fused:
-            return instance_norm_mish(x.contiguous(), scale, bias)
-        y = instance_norm(x.float(), scale, bias).to(x.dtype)
+            return instance_norm_mish(x.contiguous(), self.N.weight.detach(),
+                                      self.N.bias.detach())
+        y = instance_norm(x.float(), self.N.weight, self.N.bias).to(x.dtype)
         return mish(y.float()).to(x.dtype)
 
 
@@ -102,14 +103,49 @@ def _conv(x, conv, **kw):
     return y + conv.bias.to(x.dtype)[None, :, None, None, None]
 
 
+def _up_cat(x, x_e, deconv):
+    """The stride-2 deconv of ``x``, then MONAI's replicate pad of one at the
+    high end of each dim where the encoder feature ``x_e`` is larger (odd
+    input sizes), then ``x_e ⧺ up``."""
+    x_0 = F.conv_transpose3d(x, deconv.weight.to(x.dtype), stride=2)
+    x_0 = x_0 + deconv.bias.to(x.dtype)[None, :, None, None, None]
+    pads = []
+    for ax in (4, 3, 2):
+        pads += [0, x_e.shape[ax] - x_0.shape[ax]]
+    if any(pads):
+        x_0 = F.pad(x_0, pads, mode="replicate")
+    return torch.cat([x_e, x_0], dim=1)
+
+
+class LocalOps:
+    """How the blocks' forwards run each step on one device: the 3×3×3 conv
+    with zero padding, the norm+mish epilogue (through ``instance_norm_mish``
+    when ``fused``), and ``each(fn, *args)`` for the steps that need no
+    neighbour (pool, deconv ⧺ skip, the final 1×1×1 conv). The topology lives
+    in the blocks alone: ``parallel/sharded_training.py`` passes a version
+    for a row of z-shards, with halo planes and global statistics."""
+
+    def __init__(self, fused: bool = False):
+        self.fused = fused
+
+    def conv(self, x, conv):
+        return _conv(x, conv, padding=1)
+
+    def norm_mish(self, x, adn):
+        return adn(x, self.fused)
+
+    def each(self, fn, *args):
+        return fn(*args)
+
+
 class _Convolution(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv = nn.Conv3d(cin, cout, kernel_size=3, padding=1, bias=True)
         self.adn = _ADN(cout)
 
-    def forward(self, x, fused: bool = False):
-        return self.adn(_conv(x, self.conv, padding=1), fused)
+    def forward(self, x, ops: LocalOps):
+        return ops.norm_mish(ops.conv(x, self.conv), self.adn)
 
 
 class _TwoConv(nn.Module):
@@ -118,8 +154,8 @@ class _TwoConv(nn.Module):
         self.conv_0 = _Convolution(cin, cmid)
         self.conv_1 = _Convolution(cmid, cout)
 
-    def forward(self, x, fused: bool = False):
-        return self.conv_1(self.conv_0(x, fused), fused)
+    def forward(self, x, ops: LocalOps):
+        return self.conv_1(self.conv_0(x, ops), ops)
 
 
 class _Down(nn.Module):
@@ -128,19 +164,16 @@ class _Down(nn.Module):
         self.max_pooling = nn.MaxPool3d(2)
         self.convs = _TwoConv(cin, cout, cout)
 
-    def forward(self, x, fused: bool = False):
-        return self.convs(self.max_pooling(x), fused)
+    def forward(self, x, ops: LocalOps):
+        return self.convs(ops.each(self.max_pooling, x), ops)
 
 
 class _Upsample(nn.Module):
+    """Holds the deconv under MONAI's key; ``_up_cat`` runs it."""
+
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.deconv = nn.ConvTranspose3d(cin, cout, kernel_size=2, stride=2)
-
-    def forward(self, x):
-        d = self.deconv
-        y = F.conv_transpose3d(x, d.weight.to(x.dtype), stride=2)
-        return y + d.bias.to(x.dtype)[None, :, None, None, None]
 
 
 class _UpCat(nn.Module):
@@ -150,16 +183,8 @@ class _UpCat(nn.Module):
         self.upsample = _Upsample(cin, c_up)
         self.convs = _TwoConv(c_skip + c_up, cout, cout)
 
-    def forward(self, x, x_e, fused: bool = False):
-        x_0 = self.upsample(x)
-        # MONAI pads the upsampled tensor by one (replicate) at the high end
-        # of each dim where the encoder feature is larger (odd input sizes)
-        pads = []
-        for ax in (4, 3, 2):
-            pads += [0, x_e.shape[ax] - x_0.shape[ax]]
-        if any(pads):
-            x_0 = F.pad(x_0, pads, mode="replicate")
-        return self.convs(torch.cat([x_e, x_0], dim=1), fused)
+    def forward(self, x, x_e, ops: LocalOps):
+        return self.convs(ops.each(_up_cat, x, x_e, self.upsample.deconv), ops)
 
 
 class BasicUNet(nn.Module):
@@ -190,17 +215,22 @@ class BasicUNet(nn.Module):
         config's ``fused_in_mish`` here, its one source."""
         x = x.to(dtype).permute(0, 4, 1, 2, 3)
         with full_f32():
-            x0 = self.conv_0(x, fused)
-            x1 = self.down_1(x0, fused)
-            x2 = self.down_2(x1, fused)
-            x3 = self.down_3(x2, fused)
-            x4 = self.down_4(x3, fused)
-            u4 = self.upcat_4(x4, x3, fused)
-            u3 = self.upcat_3(u4, x2, fused)
-            u2 = self.upcat_2(u3, x1, fused)
-            u1 = self.upcat_1(u2, x0, fused)
-            logits = _conv(u1, self.final_conv)
+            logits = self.body(x, LocalOps(fused))
         return logits.permute(0, 2, 3, 4, 1)
+
+    def body(self, x, ops: LocalOps):
+        """The topology on channels-first ``x``, every step through
+        ``ops``."""
+        x0 = self.conv_0(x, ops)
+        x1 = self.down_1(x0, ops)
+        x2 = self.down_2(x1, ops)
+        x3 = self.down_3(x2, ops)
+        x4 = self.down_4(x3, ops)
+        u4 = self.upcat_4(x4, x3, ops)
+        u3 = self.upcat_3(u4, x2, ops)
+        u2 = self.upcat_2(u3, x1, ops)
+        u1 = self.upcat_1(u2, x0, ops)
+        return ops.each(_conv, u1, self.final_conv)
 
 
 def basic_unet_apply(model: BasicUNet, x, config: BasicUNetConfig):

@@ -52,6 +52,60 @@ def state_dict_from_jax_params(params) -> dict:
     return sd
 
 
+def jax_params_from_state_dict(state_dict) -> dict:
+    """MONAI-keyed state dict (tensors or arrays; a DataParallel ``module.``
+    prefix is stripped) → the JAX package's param tree of float32 numpy
+    arrays, the inverse of ``state_dict_from_jax_params``: conv kernels go
+    OIDHW → DHWIO, deconv kernels stay in torch layout. The port's own
+    version of the JAX package's ``torch_state_dict_to_params``."""
+    sd = {(k[len("module."):] if k.startswith("module.") else k): v
+          for k, v in state_dict.items()}
+
+    def a(key):
+        v = sd[key]
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().numpy()
+        return np.array(v, dtype=np.float32)
+
+    def dhwio(key):
+        return np.ascontiguousarray(np.transpose(a(key), (2, 3, 4, 1, 0)))
+
+    params = {}
+    for block in _TWO_CONVS:
+        p = {}
+        for i in (0, 1):
+            pre = f"{_monai_prefix(block)}.conv_{i}"
+            p[f"conv_{i}"] = {
+                "w": dhwio(f"{pre}.conv.weight"),
+                "b": a(f"{pre}.conv.bias"),
+                "scale": a(f"{pre}.adn.N.weight"),
+                "bias": a(f"{pre}.adn.N.bias"),
+            }
+        if block.startswith("upcat"):
+            p["deconv_w"] = a(f"{block}.upsample.deconv.weight")
+            p["deconv_b"] = a(f"{block}.upsample.deconv.bias")
+        params[block] = p
+    params["final"] = {"w": dhwio("final_conv.weight"), "b": a("final_conv.bias")}
+    return params
+
+
+def save_params_npz(path: str, params: dict) -> None:
+    """Save a param tree as the JAX package's ``.npz`` (flat, '/'-joined
+    keys, compressed), which its ``load_params_npz`` and the port's
+    ``load_weights`` read."""
+    flat = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}{k}/", v)
+        else:
+            flat[prefix[:-1]] = np.asarray(node)
+
+    walk("", params)
+    np.savez_compressed(path, **flat)
+
+
 def load_params_npz(path: str) -> dict:
     """A ``.npz`` written by the JAX package's ``save_params_npz`` → the
     nested param tree of numpy arrays."""

@@ -21,6 +21,9 @@ before ``binaries.npy`` is opened until its last write is flushed, so an
 inference that raised leaves a brain that ``inference_done`` does not take
 as finished (the JAX package's runner skips any ``binaries.npy`` without a
 resume sidecar, zeros included).
+
+``run_inference_from_nifti`` runs the same engine on a whole NIfTI volume
+(the reference's legacy loader), for weights fresh from training.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from delivr_cfos_tpu_torch.ops.morphology import binarize_logits
 from delivr_cfos_tpu_torch.parallel.mesh import make_mesh, visible_devices
 from delivr_cfos_tpu_torch.parallel.sharded_inference import sharded_infer_volume
 from delivr_cfos_tpu_torch.utils.device import resolve_device
+from delivr_cfos_tpu_torch.utils.io.nifti import read_nifti
 from delivr_cfos_tpu_torch.utils.io.npy import open_memmap
 from delivr_cfos_tpu_torch.utils.logging import log
 
@@ -231,3 +235,33 @@ def _is_npy(path: str, shape, dtype) -> bool:
     except (OSError, ValueError):
         return False
     return mm.shape == tuple(shape) and mm.dtype == np.dtype(dtype)
+
+
+def run_inference_from_nifti(nifti_path: str, weights_path: str,
+                             output_binaries_path: str, tta: bool = False,
+                             window: tuple = (96, 96, 64), threshold: float = 0.5,
+                             device=None) -> np.ndarray:
+    """The JAX package's variant of the reference's legacy NIfTI loader
+    (reference: inference/inference_nifti_load.py — a whole .nii in RAM
+    instead of the memmapped npy): read a NIfTI volume (reference axis
+    convention, (y, x, z) → (z, y, x)), run sliding-window inference on
+    ``device`` (None means the card; raises without CUDA), write the
+    binaries as a .npy memmap. The forward is the fast one, on the
+    hand-written kernels, on CUDA and parity on the CPU (where the JAX
+    package always runs parity), as ``blob_detection.precision`` 'auto'
+    resolves. Returns the binary volume."""
+    device = resolve_device(device)
+    params = load_weights(weights_path)
+    mode = "fast" if device.type == "cuda" else "parity"
+    model_cfg = dataclasses.replace(infer_model_config(params), precision=mode)
+    vol = np.ascontiguousarray(
+        np.transpose(np.asarray(read_nifti(nifti_path)), (2, 0, 1))
+    ).astype(np.uint16)
+    sw_cfg = SlidingWindowConfig(roi=window, tta=tta, threshold=threshold)
+    _, binaries = infer_volume(build_model(params, model_cfg, device), vol, sw_cfg, model_cfg)
+    binaries = binaries.cpu().numpy()
+    if output_binaries_path:
+        mm = open_memmap(output_binaries_path, shape=binaries.shape, dtype=np.uint8)
+        mm[:] = binaries
+        mm.flush()
+    return binaries

@@ -174,7 +174,8 @@ def test_cuda_requested_without_a_card_raises(brain):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter: tests/conftest.py has imported JAX here. Stages
-    1-6, their modules, the runner, the CLI, parallel/*, and chip_smoke.py."""
+    1-6, their modules, the runner, the CLI, parallel/*, training/*, the
+    NIfTI codec, and chip_smoke.py."""
     code = (
         "import sys\n"
         "import delivr_cfos_tpu_torch.pipeline.stage02_inference\n"
@@ -203,6 +204,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import delivr_cfos_tpu_torch.parallel.mesh\n"
         "import delivr_cfos_tpu_torch.parallel.sharded_inference\n"
         "import delivr_cfos_tpu_torch.parallel.sharded_cc\n"
+        "import delivr_cfos_tpu_torch.parallel.sharded_training\n"
+        "import delivr_cfos_tpu_torch.training\n"
+        "import delivr_cfos_tpu_torch.training.losses\n"
+        "import delivr_cfos_tpu_torch.training.data\n"
+        "import delivr_cfos_tpu_torch.training.train\n"
+        "import delivr_cfos_tpu_torch.utils.io.nifti\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'delivr_cfos_tpu' or m.startswith('delivr_cfos_tpu.')]\n"
