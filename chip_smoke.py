@@ -34,8 +34,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
              included; each row gives the bound, the fraction of it reached
              (device time), the grid, the kernel's registers and blocks per
              SM; a "deconv_sum" line sums the five rows' times and bounds.
+             One more row, "upcat_4/packed", holds upcat_4 of phase 4b's
+             packed model (C = 512, O = 256, 8 packed windows) to the same
+             bound; it is not in the sum.
 4. model   — full-width fast forward (apply_cs) against the f32 parity
              BasicUNet on the same seeded weights, on volume windows.
+4b. packing — the same weights packed two windows a call
+             (models/packing.py: block-diagonal weights, features (64, 64,
+             128, 256, 512, 64)) on 16 bright (96, 96, 64) windows of phase
+             6's volume, 8 packed inputs. Fast: 18 conv3d_cs (1 gather for
+             the C_in = 2 first conv, 17 packed), 17 conv3d_cs_pack and 4
+             deconv2x_cs launches (counts set to 0 just before the packed
+             forward, read just after), no library convolution in a traced
+             run; logits within 2 bf16 ULPs of the largest |logit| of the
+             per-window fast forward, binaries differing only where |logit|
+             is within that change (the count outside the 1e-3 band and the
+             change against a per-window model whose first conv also takes
+             the gather kernel are printed); ms per window packed and
+             unpacked. Parity: packed within 2e-4 of per-window. Then the
+             packed first conv against its plain version at its shape (a
+             "kernel" row, "packed/conv_0.0", gather path).
 5. stage1  — stage 1 (pipeline/stage01_downsample_mask.py::downsample_mask)
              on 192 uncompressed uint16 TIFF planes of the (192, 480, 384)
              volume of phase 6 at the default ratios (4, 15, 15): first
@@ -93,6 +111,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              conv3d_cs_pack and 4 deconv2x_cs launches per 18 conv3d_cs in
              both; one more streamed run under
              torch.profiler gives the device's idle share.
+10a. zarr  — phase 10's (768, 480, 384) volume written as a zlib zarr v2
+             store in (64, 128, 128) chunks (utils/io/zarr.py), then
+             infer_volume_streaming fast from the ZarrVolume and from an
+             np.memmap of the same array, with phase 10's window config,
+             model config, slab depth and batch: logits and binaries equal
+             to the bit, the same launches (18 conv3d_cs with 1 direct and
+             no gather, 17 packs, 4 deconvs per forward batch); seconds of
+             the write, of both streams and of the slab reads (chunk reads
+             and zlib decode, on the prefetch thread), GVox/s, peak GiB.
 10b. sharded — stage 2 z-sharded over meshes that name the card 2 and 4
              times (parallel/: the real per-shard window grids, halo copies
              and kernels on one card): run_inference in device memory with
@@ -227,6 +254,9 @@ SEED = 0
 SPIN_CYCLES = 50_000_000  # about 25 ms at the card's clock: device_ms's head start
 BAND = 1e-3  # |logit| inside which sums in another order may flip a voxel
 PACKED = 17  # convs of a forward on the packed path: all but the C_in = 1 first
+PACK_G = 2  # windows packed into one UNet call in phase 4b (models/packing.py)
+PACK_WINDOWS = 16  # windows of phase 4b: 8 packed inputs
+ZARR_CHUNKS = (64, 128, 128)  # phase 10a's zarr v2 chunks of STREAM_VOLUME
 # stage 1's 8-bit stack of a (1300, 6000, 7000) raw brain at the default
 # ratios (4, 15, 15): ceil(1300 / 4) - 1, ceil(6000 / 15), ceil(7000 / 15)
 BRAIN_STACK = (324, 400, 467)
@@ -880,6 +910,215 @@ def stream_phase(card, sd, dev):
         raise AssertionError("the resumed stream disagrees with the uninterrupted one")
 
     return bin_st, sig_st
+
+
+def packing_phase(card, sd, dev):
+    """Phase 4b: the full-width model at PACK_G windows a call
+    (models/packing.py) on PACK_WINDOWS windows of the bench volume, fast
+    and parity, against the same windows one a call."""
+    from delivr_cfos_tpu_torch.engine.sliding_window import dense_patch_starts
+    from delivr_cfos_tpu_torch.models.basic_unet import (
+        BasicUNetConfig, basic_unet_apply, build_model,
+    )
+    from delivr_cfos_tpu_torch.models.packing import (
+        pack_config, pack_params, pack_windows, unpack_logits,
+    )
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack, conv3d_cs_packed,
+    )
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
+
+    vol = make_volume()
+    bright = [s for s in dense_patch_starts(VOLUME, ROI, 0.5)
+              if vol[s[0]:s[0] + ROI[0], s[1]:s[1] + ROI[1], s[2]:s[2] + ROI[2]].max() > 0]
+    picks = bright[:: max(1, len(bright) // PACK_WINDOWS)][:PACK_WINDOWS]
+    wins = np.stack([vol[z:z + ROI[0], y:y + ROI[1], x:x + ROI[2]] for z, y, x in picks])
+    del vol
+    x = torch.from_numpy(wins.astype(np.float32))[..., None].to(dev)
+    fast_cfg, par_cfg = BasicUNetConfig(precision="fast"), BasicUNetConfig()
+    pfast, ppar = pack_config(fast_cfg, PACK_G), pack_config(par_cfg, PACK_G)
+    model = build_model(sd, fast_cfg, dev)
+    packed = build_model(pack_params(sd, PACK_G), pfast, dev)
+    xp = pack_windows(x, PACK_G)
+
+    def one():
+        return basic_unet_apply(model, x, fast_cfg)
+
+    def pk():
+        return unpack_logits(basic_unet_apply(packed, xp, pfast), PACK_G)
+
+    with torch.no_grad():
+        ref = one().float()
+        torch.cuda.synchronize()
+        # the packed forward's launches: counts set to 0 just before
+        conv3d_cs.launches = conv3d_cs_pack.launches = conv3d_cs_packed.launches = 0
+        conv3d_cs_direct.launches = conv3d_cs_gather.launches = deconv2x_cs.launches = 0
+        got = pk().float()
+        torch.cuda.synchronize()
+        counts = dict(conv3d_cs=conv3d_cs.launches, packed=conv3d_cs_packed.launches,
+                      pack=conv3d_cs_pack.launches, direct=conv3d_cs_direct.launches,
+                      gather=conv3d_cs_gather.launches, deconv2x_cs=deconv2x_cs.launches)
+        ms_one = timed_ms(one) / PACK_WINDOWS
+        ms_packed = timed_ms(pk) / PACK_WINDOWS
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA,
+        ]) as prof:
+            t0 = time.perf_counter()
+            pk()
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        prof_row = profile_summary(prof, traced_s)
+        emit(dict(prof_row, card=card, run="packed fast forward"))
+        del prof
+        # the per-window model with a zero second input channel: its first
+        # conv (C_in = 2) runs the gather kernel as the packed one does
+        sd2 = dict(sd, **{"conv_0.conv_0.conv.weight": torch.cat(
+            [sd["conv_0.conv_0.conv.weight"],
+             torch.zeros_like(sd["conv_0.conv_0.conv.weight"])], dim=1)})
+        cfg2 = BasicUNetConfig(in_channels=2, precision="fast")
+        same_first = basic_unet_apply(build_model(sd2, cfg2, dev),
+                                      torch.cat([x, torch.zeros_like(x)], dim=-1),
+                                      cfg2).float()
+        par_ref = basic_unet_apply(model, x, par_cfg)
+        par_got = unpack_logits(basic_unet_apply(packed, xp, ppar), PACK_G)
+        torch.cuda.synchronize()
+    # bf16 logits: the first conv's other kernel rounds other f32 sums, and
+    # the logits move by bf16 ULPs, more than BAND where |logit| >= 1/4. Held:
+    # within 2 bf16 ULPs of the largest |logit| (tests/test_torch_packing.py's
+    # bound), and binaries differ only where |logit| is within that change
+    dmax = float((got - ref).abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
+    flips = (got >= 0) != (ref >= 0)
+    band = ref.abs() <= BAND
+    fast_equal = dmax <= 2 * ulp and bool((ref.abs()[flips] <= dmax).all())
+    par_dev = float((par_got - par_ref).abs().max())
+    row = dict(phase="packing", card=card, g=PACK_G, windows=PACK_WINDOWS,
+               window=list(ROI), packed_features=list(pfast.features),
+               launches=counts, fast_max_abs_dlogit=dmax, fast_bound=2 * ulp,
+               fast_max_abs_logit=float(ref.abs().max()),
+               fast_flipped_voxels=int(flips.sum()), fast_voxels_in_band=int(band.sum()),
+               fast_differing_outside_band=int(flips[~band].sum()),
+               same_first_conv_max_abs_dlogit=float((got - same_first).abs().max()),
+               same_first_conv_differing_logits=int((got != same_first).sum()),
+               fast_ms_per_window_packed=ms_packed, fast_ms_per_window_unpacked=ms_one,
+               packed_over_unpacked=ms_packed / ms_one,
+               parity_max_abs_dev=par_dev, parity_mean_abs=float(par_ref.abs().mean()),
+               finite=bool(torch.isfinite(got).all() and torch.isfinite(par_got).all()))
+    emit(row)
+    del x, xp, ref, got, same_first, par_ref, par_got, model, packed
+    torch.cuda.empty_cache()
+    # the packed first conv (C_in = PACK_G) on its gather kernel, held and timed
+    gather_row = check_conv(card, "packed/conv_0.0", PACK_WINDOWS // PACK_G, *ROI,
+                            PACK_G, 0, pfast.features[0])
+    if gather_row["path"] != "gather":
+        raise AssertionError(f"the packed first conv took the {gather_row['path']} kernel")
+    want = dict(conv3d_cs=18, packed=PACKED, pack=PACKED, direct=0, gather=1, deconv2x_cs=4)
+    if counts != want:
+        raise AssertionError(f"the packed forward launched {counts}, not {want}")
+    if prof_row["library_conv"] or prof_row["library_transposed_conv"]:
+        raise AssertionError("the packed fast forward ran a library convolution: "
+                             f"{prof_row['library_conv']} {prof_row['library_transposed_conv']}")
+    if not (row["finite"] and fast_equal):
+        raise AssertionError(f"packed fast logits beyond 2 bf16 ULPs, or binaries flipped "
+                             f"beyond the change: {row}")
+    if par_dev > 2e-4:
+        raise AssertionError(f"packed parity is {par_dev} from per-window parity (bound 2e-4)")
+
+
+def zarr_phase(card, sd, dev):
+    """Phase 10a: STREAM_VOLUME as a zlib zarr v2 store in ZARR_CHUNKS,
+    streamed through stage 2 fast from the ZarrVolume and from an np.memmap
+    of the same array, with the window config, model config, slab depth and
+    batch of phase 10's streamed run."""
+    from delivr_cfos_tpu_torch.engine import streaming
+    from delivr_cfos_tpu_torch.models.basic_unet import build_model
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack,
+    )
+    from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
+    from delivr_cfos_tpu_torch.pipeline.stage02_inference import (
+        resolve_model_config, sliding_window_config,
+    )
+    from delivr_cfos_tpu_torch.utils.io.zarr import ZarrVolume, write_zarr
+
+    class TimedZarr(ZarrVolume):
+        """The store, with the seconds of each read (the streaming engine's
+        slab loads: chunk reads, zlib decode and copies)."""
+
+        def __init__(self, path):
+            super().__init__(path)
+            self.reads = []
+
+        def __getitem__(self, key):
+            t0 = time.perf_counter()
+            out = super().__getitem__(key)
+            self.reads.append(time.perf_counter() - t0)
+            return out
+
+    svol = make_volume(STREAM_VOLUME)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pcfg = pipeline_config(tmp, "zarr", load_all_ram=False)
+        sw_cfg = sliding_window_config(pcfg)
+        fast_cfg, _ = resolve_model_config(pcfg.blob_detection, sd, dev)
+        k = streaming.slab_depth(sw_cfg, fast_cfg, STREAM_VOLUME, svol.itemsize, dev)
+        batch = streaming.slab_batch_size(sw_cfg, fast_cfg, STREAM_VOLUME, svol.itemsize, k, dev)
+        t0 = time.perf_counter()
+        write_zarr(os.path.join(tmp, "vol.zarr"), svol, chunks=ZARR_CHUNKS, compressor="zlib")
+        write_s = time.perf_counter() - t0
+        store_bytes = sum(os.path.getsize(os.path.join(tmp, "vol.zarr", f))
+                          for f in os.listdir(os.path.join(tmp, "vol.zarr")))
+        mm = np.lib.format.open_memmap(os.path.join(tmp, "vol.npy"), mode="w+",
+                                       dtype=svol.dtype, shape=svol.shape)
+        mm[:] = svol
+        mm.flush()
+        del mm, svol
+        model = build_model(sd, fast_cfg, dev)
+        zvol = TimedZarr(os.path.join(tmp, "vol.zarr"))
+        for name, src in (("zarr", zvol),
+                          ("memmap", np.load(os.path.join(tmp, "vol.npy"), mmap_mode="r"))):
+            bins = np.empty(STREAM_VOLUME, np.uint8)
+            logits = np.empty(STREAM_VOLUME, np.float32)
+            conv3d_cs.launches = conv3d_cs_pack.launches = deconv2x_cs.launches = 0
+            conv3d_cs_direct.launches = conv3d_cs_gather.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            streaming.infer_volume_streaming(model, src, sw_cfg, fast_cfg, slab_z_starts=k,
+                                             binary_out=bins, logits_out=logits)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            runs[name] = dict(
+                seconds=seconds, peak=torch.cuda.max_memory_allocated() / 2**30,
+                bins=bins, logits=logits,
+                counts=(conv3d_cs.launches, conv3d_cs_pack.launches, deconv2x_cs.launches,
+                        conv3d_cs_direct.launches, conv3d_cs_gather.launches))
+        del model
+    z, m = runs["zarr"], runs["memmap"]
+    n_vox = int(np.prod(STREAM_VOLUME))
+    same = bool(np.array_equal(z["logits"], m["logits"]) and np.array_equal(z["bins"], m["bins"]))
+    conv, pack, deconv, direct, gathered = m["counts"]
+    emit(dict(phase="zarr", card=card, volume=list(STREAM_VOLUME), chunks=list(ZARR_CHUNKS),
+              compressor="zlib", store_mb=store_bytes / 1e6,
+              volume_mb=n_vox * 2 / 1e6, write_s=write_s, slab_z_starts=k, batch=batch,
+              seconds_zarr=z["seconds"], gvox_per_s_zarr=n_vox / z["seconds"] / 1e9,
+              seconds_memmap=m["seconds"], gvox_per_s_memmap=n_vox / m["seconds"] / 1e9,
+              slab_reads=len(zvol.reads), decode_s=sum(zvol.reads),
+              decode_s_per_read=list(zvol.reads),
+              peak_gib_zarr=z["peak"], peak_gib_memmap=m["peak"],
+              launches_zarr=list(z["counts"]), launches_memmap=list(m["counts"]),
+              positives=int(z["bins"].sum()), bit_identical=same))
+    if not same:
+        raise AssertionError("the stream from the zarr store differs from the memmap's")
+    if (z["counts"] != m["counts"] or conv < 18 or conv % 18 or gathered
+            or direct != conv // 18 or pack != PACKED * direct or deconv != 4 * direct):
+        raise AssertionError(f"zarr stream launches {z['counts']}, memmap {m['counts']}: "
+                             "not 18 conv3d_cs (1 direct, 0 gather), 17 packs and 4 "
+                             "deconvs per forward batch in both")
+    if not np.isfinite(z["logits"]).all():
+        raise AssertionError("the zarr stream's logits are not finite")
 
 
 def sharded_forward_batches(vol, n, dev):
@@ -2472,6 +2711,10 @@ def main() -> int:
                    for n, d, h, w, c, o in up_shapes]
     n1, d1, h1, w1, c1, o1 = up_shapes[-1]
     deconv_extra = [check_deconv(smi, n1, batch, d1, h1, w1, c1, o1, with_bias=True)]
+    # upcat_4 of phase 4b's packed model: PACK_G × 256 channels in
+    n4, d4, h4, w4, c4, o4 = up_shapes[0]
+    deconv_wide = check_deconv(smi, f"{n4}/packed", PACK_WINDOWS // PACK_G, d4, h4, w4,
+                               PACK_G * c4, PACK_G * o4)
     emit(dict(phase="deconv_sum", card=smi, rows=len(deconv_rows + deconv_extra),
               **{k: sum(r[k] for r in deconv_rows + deconv_extra)
                  for k in ("ms", "call_ms", "bound_ms", "library_ms", "library_call_ms")}))
@@ -2498,6 +2741,10 @@ def main() -> int:
     if not torch.isfinite(fast).all() or dev_max / scale >= 0.5:
         raise AssertionError("fast forward strays from parity beyond 0.5 × mean |logit|")
     del xw, fast, parity
+    torch.cuda.empty_cache()
+
+    # --- 4b. the model at two windows a call (models/packing.py) ------------
+    packing_phase(smi, sd, dev)
     torch.cuda.empty_cache()
 
     # --- 5. stage 1, and stage 2 on its output ------------------------------
@@ -2660,6 +2907,10 @@ def main() -> int:
     bin_stream, sig_stream = stream_phase(smi, sd, dev)
     torch.cuda.empty_cache()
 
+    # --- 10a. the same streamed run from a zarr v2 store ---------------------
+    zarr_phase(smi, sd, dev)
+    torch.cuda.empty_cache()
+
     # --- 10b. stage 2 sharded over one-card meshes; the sharded labeler ------
     sharded_phase(smi, sd, dev, bin_fast, bin_stream, sig_stream)
     del sig_stream
@@ -2761,7 +3012,8 @@ def main() -> int:
         "source": "delivr_cfos_tpu_torch/csrc/deconv2x_cs.cu",
         "replaces": "scripts/probe_deconv.py:117",
         "launches": deconv_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in deconv_rows + deconv_extra),
+        "max_abs_err": max(r["max_abs_err"] for r in deconv_rows + deconv_extra
+                           + [deconv_wide]),
         # one forward batch: the sum over its 4 UpCat shapes
         "ms": sum(r["ms"] for r in deconv_rows),
         "plain_ms": sum(r["plain_ms"] for r in deconv_rows),

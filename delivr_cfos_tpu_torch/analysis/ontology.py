@@ -17,9 +17,11 @@ The O(n²) parent scan of the reference is replaced by an id→acronym dict.
 from __future__ import annotations
 
 import io
+from typing import TYPE_CHECKING
 from xml.etree import ElementTree as ET
 
-import pandas as pd
+if TYPE_CHECKING:
+    import pandas as pd
 
 COLUMNS = [
     "id",
@@ -39,6 +41,10 @@ _ID_REMAP = {312782566: 312782560, 614454277: 614454272}
 
 
 def parse_ontology_xml(path: str) -> pd.DataFrame:
+    # pandas loads on the first call: the package's __init__ exports this
+    # function, and importing it stays free of pandas
+    import pandas as pd
+
     with io.open(path, "r", encoding="utf-8-sig") as f:
         root = ET.fromstring(f.read())
 

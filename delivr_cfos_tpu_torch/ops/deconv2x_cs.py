@@ -26,9 +26,11 @@ import torch
 from delivr_cfos_tpu_torch.ops import _build
 from delivr_cfos_tpu_torch.utils.device import full_f32
 
-# the widest input the wrapper takes: a kept contract (the production UpCats
-# take at most 256), not a resource limit, since the kernel streams C
-MAX_C = 464
+# the widest input the kernel takes. It streams C in chunks of 32, so shared
+# memory and registers do not grow with C; a block counts its (M tile, K
+# chunk) steps in a 32-bit int, and under MAX_VOXELS there are at most 2^24
+# M tiles, so ⌈C/32⌉ stays at most 127
+MAX_C = 127 * 32
 MAX_VOXELS = 1 << 30  # B·D·H·W stays below it: the kernel's voxel indices are 32-bit
 TM = 64  # input voxels per tile: the GEMM's rows
 TILE_O = 32  # output channels per tile: 8 phases × 32 = 256 GEMM columns

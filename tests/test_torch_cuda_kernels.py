@@ -359,6 +359,9 @@ def test_deconv2x_cs_kernel_matches_plain_version(dev, b, d, c, h, w, o, with_bi
     (2, 2, 64, 6, 4, 40, True),
     # upcat_4 and upcat_1 at a batch of 3
     (3, 6, 256, 6, 4, 128, False),
+    # upcat_4 of the full-width model packed two windows a call
+    # (models/packing.py): 512 channels in, 256 out
+    (2, 6, 512, 6, 4, 256, False),
     (3, 48, 32, 48, 32, 32, True),
 ])
 def test_deconv2x_cs_kernel_tiles(dev, b, d, c, h, w, o, with_bias):

@@ -175,7 +175,8 @@ def test_cuda_requested_without_a_card_raises(brain):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter: tests/conftest.py has imported JAX here. Stages
     1-6, their modules, the runner, the CLI, parallel/*, training/*, the
-    NIfTI codec, and chip_smoke.py."""
+    NIfTI and zarr codecs, window packing, the analysis tools, and
+    chip_smoke.py."""
     code = (
         "import sys\n"
         "import delivr_cfos_tpu_torch.pipeline.stage02_inference\n"
@@ -210,9 +211,39 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import delivr_cfos_tpu_torch.training.data\n"
         "import delivr_cfos_tpu_torch.training.train\n"
         "import delivr_cfos_tpu_torch.utils.io.nifti\n"
+        "import delivr_cfos_tpu_torch.utils.io.zarr\n"
+        "import delivr_cfos_tpu_torch.models.packing\n"
+        "import delivr_cfos_tpu_torch.analysis.depth_profile\n"
+        "import delivr_cfos_tpu_torch.analysis.group_stats\n"
+        "import delivr_cfos_tpu_torch.analysis.elastix_points\n"
+        "import delivr_cfos_tpu_torch.analysis.brainrender_export\n"
+        "import delivr_cfos_tpu_torch.analysis.brainrender_render\n"
+        "import delivr_cfos_tpu_torch.analysis.napari_loader\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'delivr_cfos_tpu' or m.startswith('delivr_cfos_tpu.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_analysis_package_imports_no_pandas():
+    """``delivr_cfos_tpu_torch.analysis`` exports the JAX package's three
+    names and loads neither pandas, scipy, JAX nor the JAX package: stage 5
+    imports its ontology module."""
+    code = (
+        "import sys\n"
+        "from delivr_cfos_tpu_torch.analysis import (\n"
+        "    apply_transform_chain, parse_ontology_xml, transform_points_native)\n"
+        "import delivr_cfos_tpu_torch.analysis as a\n"
+        "assert a.__all__ == ['parse_ontology_xml', 'apply_transform_chain',\n"
+        "                     'transform_points_native'], a.__all__\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('pandas', 'scipy', 'jax', 'jaxlib', 'delivr_cfos_tpu')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
