@@ -15,14 +15,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              ULP (at max(|value|, rms of the output)), stats within rtol 1e-3.
              On the packed path (all but the C_in = 1 first conv) also
              conv3d_cs_pack against its plain version, bit for bit. Each row
-             gives the path (packed / direct / gather), the conv kernel's ms
-             and the pack's ms apart, their sum, the bounds, TFLOP/s, the
-             plain versions' ms, one cuDNN bf16 F.conv3d and, for the pack,
-             one F.pad of the channels-last view (yardsticks only; the port
-             never calls them), the kernel's registers and blocks per SM; a
-             "kernel_sum" line sums the 18 shapes. The first conv takes the
-             direct kernel; a "conv_0.0/gather" row holds the gather kernel
-             to the same check at the same shape, and times it.
+             gives the path (packed / direct / narrow / gather), the conv
+             kernel's ms and the pack's ms apart (off the packed path device
+             time, the host's enqueueing excluded), their sum, the bounds,
+             TFLOP/s, the plain versions' ms, one cuDNN bf16 F.conv3d and,
+             for the pack, one F.pad of the channels-last view (yardsticks
+             only; the port never calls them), the kernel's registers and
+             blocks per SM; a "kernel_sum" line sums the 18 shapes. The
+             first conv takes the direct kernel; "conv_0.0/gather" and
+             "conv_0.0/narrow" rows hold the gather and narrow kernels to the
+             same check at the same shape, and time them. Two more rows: the
+             packed first conv (8 × (96, 96, 64), C 2 → 64) on the gather
+             kernel ("packed/conv_0.0/gather"), and G = 4's first conv
+             (4 × (96, 96, 64), C 4 → 128, narrow path, "g4/conv_0.0").
    deconv  — deconv2x_cs against its plain version at the four UpCat shapes
              of the same forward at the same batch, and upcat_1 with a bias:
              within one bf16 ULP at max(|value|, rms). Times the wrapper as
@@ -42,18 +47,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
 4b. packing — the same weights packed two windows a call
              (models/packing.py: block-diagonal weights, features (64, 64,
              128, 256, 512, 64)) on 16 bright (96, 96, 64) windows of phase
-             6's volume, 8 packed inputs. Fast: 18 conv3d_cs (1 gather for
-             the C_in = 2 first conv, 17 packed), 17 conv3d_cs_pack and 4
-             deconv2x_cs launches (counts set to 0 just before the packed
-             forward, read just after), no library convolution in a traced
-             run; logits within 2 bf16 ULPs of the largest |logit| of the
-             per-window fast forward, binaries differing only where |logit|
-             is within that change (the count outside the 1e-3 band and the
-             change against a per-window model whose first conv also takes
-             the gather kernel are printed); ms per window packed and
-             unpacked. Parity: packed within 2e-4 of per-window. Then the
-             packed first conv against its plain version at its shape (a
-             "kernel" row, "packed/conv_0.0", gather path).
+             6's volume, 8 packed inputs. Fast: 18 conv3d_cs (1 narrow for
+             the C_in = 2 first conv, 17 packed, no gather), 17
+             conv3d_cs_pack and 4 deconv2x_cs launches (counts set to 0 just
+             before the packed forward, read just after), no library
+             convolution and the narrow kernel in a traced run; logits
+             within 2 bf16 ULPs of the largest |logit| of the per-window
+             fast forward, binaries differing only where |logit| is within
+             that change (the count outside the 1e-3 band is printed), and
+             equal to the bit to a per-window model whose first conv also
+             takes the narrow kernel; ms per window packed and unpacked.
+             Parity: packed within 2e-4 of per-window. Then the packed first
+             conv against its plain version at its shape (a "kernel" row,
+             "packed/conv_0.0", narrow path).
+4c. gather_path — the fast forward of a BasicUNet with features
+             GATHER_FEATURES (24, 24, 48, 96, 192, 24) on 4 windows: its 8
+             convs that take 24 channels in take the gather kernel by the
+             path rule (launches as the rule gives them, counts set to 0
+             just before, read just after), logits against its parity
+             forward with phase 4's bound; then a "kernel" row for each of
+             those 8 shapes.
 5. stage1  — stage 1 (pipeline/stage01_downsample_mask.py::downsample_mask)
              on 192 uncompressed uint16 TIFF planes of the (192, 480, 384)
              volume of phase 6 at the default ratios (4, 15, 15): first
@@ -85,7 +98,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              inside the measured logit margin; one more fast run under
              torch.profiler gives the device time by kernel (phase
              "profile") and shows that no convolution or transposed
-             convolution of the library ran, and no conv3d_cs_gather_kernel.
+             convolution of the library ran, and no conv3d_cs_gather_kernel
+             or conv3d_cs_narrow_kernel.
 7. fused   — stage 2 in parity with BasicUNetConfig(fused_in_mish=True) on
              the same volume: 18 instance_norm_mish launches per forward
              batch, no conv3d_cs, binaries equal to phase 6's parity run
@@ -221,8 +235,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              gradients under a one-ULP nudge of its input printed beside),
              seconds a step.
 14. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
-             conv3d_cs_direct, conv3d_cs_pack, instance_norm_mish,
-             deconv2x_cs), the nvidia-smi line, then the result line.
+             conv3d_cs_direct, conv3d_cs_narrow with phase 4b's launches,
+             conv3d_cs_gather with phase 4c's, conv3d_cs_pack,
+             instance_norm_mish, deconv2x_cs), the nvidia-smi line, then the
+             result line.
 
 Every time, rate and memory figure is printed beside the card's name and
 power limit (the "card" key).
@@ -256,6 +272,10 @@ BAND = 1e-3  # |logit| inside which sums in another order may flip a voxel
 PACKED = 17  # convs of a forward on the packed path: all but the C_in = 1 first
 PACK_G = 2  # windows packed into one UNet call in phase 4b (models/packing.py)
 PACK_WINDOWS = 16  # windows of phase 4b: 8 packed inputs
+# phase 4c's BasicUNet: 24 channels are neither narrow (C1 + C2 <= 16) nor a
+# multiple of 16, so the 8 convs that take them in (conv_0.1, down_1, down_2.0,
+# upcat_2, upcat_1) take the gather kernel
+GATHER_FEATURES = (24, 24, 48, 96, 192, 24)
 ZARR_CHUNKS = (64, 128, 128)  # phase 10a's zarr v2 chunks of STREAM_VOLUME
 # stage 1's 8-bit stack of a (1300, 6000, 7000) raw brain at the default
 # ratios (4, 15, 15): ceil(1300 / 4) - 1, ceil(6000 / 15), ceil(7000 / 15)
@@ -402,15 +422,17 @@ def pack_bytes(b, d, h, w, cin):
 
 
 def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
-               affine=False, gather=False, chunk=16):
+               affine=False, force=None, chunk=16):
     """One conv3d_cs case against the plain version (batch-chunked so the
     f32 reference fits beside the full-batch tensors); on the packed path
-    also the pack against its plain version, bit for bit. ``gather`` runs
-    the gather kernel whatever the shape. Returns a row."""
+    also the pack against its plain version, bit for bit. ``force``
+    ("gather" or "narrow") runs that kernel whatever the shape. Off the
+    packed path, "kernel_ms" and "library_ms" are device time (device_ms),
+    "wrapper_ms" the call's time with the host's. Returns a row."""
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        block_weights, conv3d_cs, conv3d_cs_gather, conv3d_cs_pack,
+        block_weights, conv3d_cs, conv3d_cs_gather, conv3d_cs_narrow, conv3d_cs_pack,
         conv3d_cs_pack_reference, conv3d_cs_packed, conv3d_cs_path,
-        conv3d_cs_reference, conv3d_cs_resources, kernel_weights,
+        conv3d_cs_reference, conv3d_cs_resources, kernel_weights, narrow_band_rows,
     )
 
     dev = torch.device("cuda")
@@ -429,8 +451,8 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
         aff = (torch.rand((b, cin), generator=g, device=dev) + 0.5,
                torch.randn((b, cin), generator=g, device=dev) * 0.3)
     kw = dict(h=h, w=w, emit_stats=emit_stats, pair=pair, in_affine=aff)
-    path = "gather" if gather else conv3d_cs_path(c1, c2, w, cout)
-    conv = conv3d_cs_gather if gather else conv3d_cs
+    path = force or conv3d_cs_path(c1, c2, w, cout)
+    conv = {None: conv3d_cs, "gather": conv3d_cs_gather, "narrow": conv3d_cs_narrow}[force]
     pk = dict(h=h, w=w, x2=None if pair is None else pair[0],
               bias2=None if pair is None else pair[2], in_affine=aff)
 
@@ -474,7 +496,7 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
     del got, st, out
     ms = timed_ms(lambda: conv(x, wt, None, **kw))
     pack_ms = None
-    kernel_ms = ms
+    kernel_ms = ms if path == "packed" else device_ms(lambda: conv(x, wt, None, **kw))
     if xp is not None:
         w_blk = block_weights(kernel_weights(wt, None if pair is None else pair[1]))
         pack_ms = timed_ms(lambda: conv3d_cs_pack(x, **pk))
@@ -489,7 +511,8 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
     x5 = xin.reshape(b, d, cin, h, w).permute(0, 2, 1, 3, 4).contiguous()
     wcat = wt if pair is None else torch.cat([wt, pair[1]], dim=3)
     w5 = wcat.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous()
-    library_ms = timed_ms(lambda: torch.nn.functional.conv3d(x5, w5, padding=1))
+    library_ms = (timed_ms if path == "packed" else device_ms)(
+        lambda: torch.nn.functional.conv3d(x5, w5, padding=1))
     del x5
     pack_library_ms = None
     if path == "packed":
@@ -500,9 +523,10 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
     del xin
     bms, by = bound_ms(b, d, s, cin, cout, emit_stats)
     flops = 2.0 * 27 * cin * cout * b * d * s
-    regs, blocks_per_sm = conv3d_cs_resources(path, h, w)
+    regs, blocks_per_sm = conv3d_cs_resources(path, h, w, cin)
     sum_ms = kernel_ms + (pack_ms or 0.0)
     row = dict(phase="kernel", card=card, case=name, path=path, b=b, d=d, h=h, w=w,
+               band_rows=narrow_band_rows(cin, h, w) if path == "narrow" else None,
                c_in=cin, c_out=cout, pair=bool(c2), emit_stats=emit_stats,
                in_affine=affine, max_ulps=ulps, max_abs_err=err,
                stats_tol_ratio=st_ratio, pack_equal=pack_equal,
@@ -516,6 +540,7 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
                pack_bound_ms=1e3 * pack_bytes(b, d, h, w, cin) / PEAK_BYTES
                if path == "packed" else None,
                tflops=flops / sum_ms / 1e9, kernel_tflops=flops / kernel_ms / 1e9,
+               fraction_of_bound=bms / kernel_ms if path != "packed" else None,
                registers=regs, blocks_per_sm=blocks_per_sm)
     emit(row)
     if ulps > 1.0 or st_ratio > 1.0:
@@ -656,6 +681,8 @@ def profile_summary(prof, wall_s, top=12):
                 conv3d_cs_direct_launches=sum(r[1] for r in direct),
                 gather_kernel=[[r[2][:70], r[1]] for r in rows
                                if "conv3d_cs_gather_kernel" in r[2]],
+                narrow_kernel=[[r[2][:70], r[1]] for r in rows
+                               if "conv3d_cs_narrow_kernel" in r[2]],
                 deconv2x_cs_ms=deconv_ms, library_transposed_conv=transposed,
                 library_conv=library_conv,
                 top=[[name[:70], round(ms, 3), n] for ms, n, name in rows[:top]])
@@ -924,7 +951,8 @@ def packing_phase(card, sd, dev):
         pack_config, pack_params, pack_windows, unpack_logits,
     )
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack, conv3d_cs_packed,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_narrow, conv3d_cs_pack,
+        conv3d_cs_packed,
     )
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
 
@@ -953,11 +981,13 @@ def packing_phase(card, sd, dev):
         # the packed forward's launches: counts set to 0 just before
         conv3d_cs.launches = conv3d_cs_pack.launches = conv3d_cs_packed.launches = 0
         conv3d_cs_direct.launches = conv3d_cs_gather.launches = deconv2x_cs.launches = 0
+        conv3d_cs_narrow.launches = 0
         got = pk().float()
         torch.cuda.synchronize()
         counts = dict(conv3d_cs=conv3d_cs.launches, packed=conv3d_cs_packed.launches,
                       pack=conv3d_cs_pack.launches, direct=conv3d_cs_direct.launches,
-                      gather=conv3d_cs_gather.launches, deconv2x_cs=deconv2x_cs.launches)
+                      narrow=conv3d_cs_narrow.launches, gather=conv3d_cs_gather.launches,
+                      deconv2x_cs=deconv2x_cs.launches)
         ms_one = timed_ms(one) / PACK_WINDOWS
         ms_packed = timed_ms(pk) / PACK_WINDOWS
         torch.cuda.synchronize()
@@ -973,7 +1003,7 @@ def packing_phase(card, sd, dev):
         emit(dict(prof_row, card=card, run="packed fast forward"))
         del prof
         # the per-window model with a zero second input channel: its first
-        # conv (C_in = 2) runs the gather kernel as the packed one does
+        # conv (C_in = 2) runs the narrow kernel as the packed one does
         sd2 = dict(sd, **{"conv_0.conv_0.conv.weight": torch.cat(
             [sd["conv_0.conv_0.conv.weight"],
              torch.zeros_like(sd["conv_0.conv_0.conv.weight"])], dim=1)})
@@ -987,7 +1017,9 @@ def packing_phase(card, sd, dev):
     # bf16 logits: the first conv's other kernel rounds other f32 sums, and
     # the logits move by bf16 ULPs, more than BAND where |logit| >= 1/4. Held:
     # within 2 bf16 ULPs of the largest |logit| (tests/test_torch_packing.py's
-    # bound), and binaries differ only where |logit| is within that change
+    # bound), and binaries differ only where |logit| is within that change.
+    # Against the per-window model whose first conv takes the same kernel the
+    # packed forward is equal to the bit: its zero weight blocks add zeros
     dmax = float((got - ref).abs().max())
     ulp = 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
     flips = (got >= 0) != (ref >= 0)
@@ -1009,14 +1041,21 @@ def packing_phase(card, sd, dev):
     emit(row)
     del x, xp, ref, got, same_first, par_ref, par_got, model, packed
     torch.cuda.empty_cache()
-    # the packed first conv (C_in = PACK_G) on its gather kernel, held and timed
-    gather_row = check_conv(card, "packed/conv_0.0", PACK_WINDOWS // PACK_G, *ROI,
+    # the packed first conv (C_in = PACK_G) on its narrow kernel, held and timed
+    narrow_row = check_conv(card, "packed/conv_0.0", PACK_WINDOWS // PACK_G, *ROI,
                             PACK_G, 0, pfast.features[0])
-    if gather_row["path"] != "gather":
-        raise AssertionError(f"the packed first conv took the {gather_row['path']} kernel")
-    want = dict(conv3d_cs=18, packed=PACKED, pack=PACKED, direct=0, gather=1, deconv2x_cs=4)
+    if narrow_row["path"] != "narrow":
+        raise AssertionError(f"the packed first conv took the {narrow_row['path']} kernel")
+    want = dict(conv3d_cs=18, packed=PACKED, pack=PACKED, direct=0, narrow=1, gather=0,
+                deconv2x_cs=4)
     if counts != want:
         raise AssertionError(f"the packed forward launched {counts}, not {want}")
+    if not prof_row["narrow_kernel"] or prof_row["gather_kernel"]:
+        raise AssertionError("the traced packed forward did not run the narrow kernel, or ran "
+                             f"the gather one: {prof_row['narrow_kernel']} {prof_row['gather_kernel']}")
+    if row["same_first_conv_differing_logits"]:
+        raise AssertionError("the packed forward differs from the per-window model whose first "
+                             f"conv takes the narrow kernel: {row}")
     if prof_row["library_conv"] or prof_row["library_transposed_conv"]:
         raise AssertionError("the packed fast forward ran a library convolution: "
                              f"{prof_row['library_conv']} {prof_row['library_transposed_conv']}")
@@ -1025,6 +1064,67 @@ def packing_phase(card, sd, dev):
                              f"beyond the change: {row}")
     if par_dev > 2e-4:
         raise AssertionError(f"packed parity is {par_dev} from per-window parity (bound 2e-4)")
+    return counts, narrow_row
+
+
+def gather_phase(card, dev):
+    """Phase 4c: the fast forward (apply_cs) of a BasicUNet with features
+    GATHER_FEATURES, random weights from the seed, on 4 bright windows of
+    the bench volume. Its 24-channel convs are neither narrow nor multiples
+    of 16, so the path rule sends them to the gather kernel. Launches
+    (counts set to 0 just before the forward, read just after) as the path
+    rule gives them for the 18 conv shapes; logits against the f32 parity
+    forward of the same weights with phase 4's bound; then a "kernel" row
+    for each gather shape. Returns the counts and those rows."""
+    from delivr_cfos_tpu_torch.engine.sliding_window import dense_patch_starts
+    from delivr_cfos_tpu_torch.models.basic_unet import (
+        BasicUNetConfig, build_model, init_state_dict,
+    )
+    from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_narrow, conv3d_cs_packed,
+        conv3d_cs_path,
+    )
+
+    cfg = BasicUNetConfig(features=GATHER_FEATURES)
+    model = build_model(init_state_dict(cfg, torch.Generator().manual_seed(SEED)), cfg, dev)
+    paths = [conv3d_cs_path(c1, c2, w, co)
+             for _, _, c1, c2, co, _, _, w in conv_shapes(GATHER_FEATURES, ROI)]
+    want = dict(conv3d_cs=18, **{k: paths.count(k) for k in ("packed", "direct", "narrow",
+                                                              "gather")})
+    vol = make_volume()
+    bright = [s for s in dense_patch_starts(VOLUME, ROI, 0.5)
+              if vol[s[0]:s[0] + ROI[0], s[1]:s[1] + ROI[1], s[2]:s[2] + ROI[2]].max() > 0]
+    wins = np.stack([vol[z:z + ROI[0], y:y + ROI[1], x:x + ROI[2]]
+                     for z, y, x in bright[:: max(1, len(bright) // 4)][:4]])
+    del vol
+    xw = torch.from_numpy(wins.astype(np.float32))[..., None].to(dev)
+    with torch.no_grad():
+        conv3d_cs.launches = conv3d_cs_packed.launches = conv3d_cs_direct.launches = 0
+        conv3d_cs_narrow.launches = conv3d_cs_gather.launches = 0
+        fast = apply_cs(model, xw).float()
+        torch.cuda.synchronize()
+        counts = dict(conv3d_cs=conv3d_cs.launches, packed=conv3d_cs_packed.launches,
+                      direct=conv3d_cs_direct.launches, narrow=conv3d_cs_narrow.launches,
+                      gather=conv3d_cs_gather.launches)
+        parity = model(xw)
+    dev_max = float((fast - parity).abs().max())
+    scale = float(parity.abs().mean()) + 1e-3
+    row = dict(phase="gather_path", card=card, features=list(GATHER_FEATURES),
+               windows=int(xw.shape[0]), paths=paths, launches=counts,
+               max_abs_dev=dev_max, parity_mean_abs=scale - 1e-3, rel_dev=dev_max / scale,
+               finite=bool(torch.isfinite(fast).all()))
+    emit(row)
+    if counts != want or not counts["gather"]:
+        raise AssertionError(f"the gather-path forward launched {counts}, not {want}")
+    if not row["finite"] or dev_max / scale >= 0.5:
+        raise AssertionError(f"the gather-path fast forward strays from parity: {row}")
+    del model, xw, fast, parity
+    # the gather kernel against its plain version at the shapes it took
+    rows = [check_conv(card, f"gather_path/{n}", int(wins.shape[0]), d, h, w, c1, c2, co)
+            for (n, _, c1, c2, co, d, h, w), path
+            in zip(conv_shapes(GATHER_FEATURES, ROI), paths) if path == "gather"]
+    return counts, rows
 
 
 def zarr_phase(card, sd, dev):
@@ -2703,8 +2803,20 @@ def main() -> int:
         check_conv(smi, "conv_0.1/no_stats", batch, 96, 96, 64, 32, 0, 32, emit_stats=False),
         check_conv(smi, "down_1.1/in_affine", batch, 48, 48, 32, 32, 0, 32, affine=True),
         # the first conv's kernel before the direct one, timed in the same run
-        check_conv(smi, "conv_0.0/gather", batch, d, h, w, c1, c2, co, gather=True),
+        check_conv(smi, "conv_0.0/gather", batch, d, h, w, c1, c2, co, force="gather"),
+        # the narrow kernel at the first conv's shape: a yardstick beside the
+        # direct kernel (the path rule for C_in = 1 stays)
+        check_conv(smi, "conv_0.0/narrow", batch, d, h, w, c1, c2, co, force="narrow"),
     ]
+    # the first convs of packed models (phase 4b): G = 2 on its gather kernel
+    # before the narrow one, and G = 4, both timed in this run
+    narrow_rows = [
+        check_conv(smi, "packed/conv_0.0/gather", PACK_WINDOWS // PACK_G, d, h, w,
+                   PACK_G, 0, PACK_G * co, force="gather"),
+        check_conv(smi, "g4/conv_0.0", PACK_WINDOWS // 4, d, h, w, 4, 0, 4 * co),
+    ]
+    if narrow_rows[1]["path"] != "narrow":
+        raise AssertionError(f"G = 4's first conv took the {narrow_rows[1]['path']} kernel")
     torch.cuda.empty_cache()
     up_shapes = deconv_shapes(fast_cfg.features, ROI)
     deconv_rows = [check_deconv(smi, n, batch, d, h, w, c, o)
@@ -2744,7 +2856,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 4b. the model at two windows a call (models/packing.py) ------------
-    packing_phase(smi, sd, dev)
+    narrow_counts, narrow_row = packing_phase(smi, sd, dev)
+    torch.cuda.empty_cache()
+
+    # --- 4c. a model whose 24-channel convs take the gather kernel ----------
+    gather_counts, gather_rows = gather_phase(smi, dev)
     torch.cuda.empty_cache()
 
     # --- 5. stage 1, and stage 2 on its output ------------------------------
@@ -2814,9 +2930,11 @@ def main() -> int:
     if deconv_launches != 4 * n_batches:
         raise AssertionError(
             f"{deconv_launches} deconv2x_cs launches != 4 × {n_batches} batches")
-    if fast_profile["gather_kernel"] or not fast_profile["conv3d_cs_direct_launches"]:
-        raise AssertionError("the fast stage 2 ran the gather kernel or not the direct one: "
-                             f"{fast_profile['gather_kernel']}")
+    if (fast_profile["gather_kernel"] or fast_profile["narrow_kernel"]
+            or not fast_profile["conv3d_cs_direct_launches"]):
+        raise AssertionError("the fast stage 2 ran the gather or narrow kernel, or not the "
+                             f"direct one: {fast_profile['gather_kernel']} "
+                             f"{fast_profile['narrow_kernel']}")
     if fast_profile["library_conv"]:
         raise AssertionError("the fast stage 2 ran a library convolution: "
                              f"{fast_profile['library_conv']}")
@@ -2978,6 +3096,35 @@ def main() -> int:
         "bound_ms": first["bound_ms"],
         "bound_by": first["bound_by"],
         "library_ms": first["library_ms"],
+    }, {
+        "name": "conv3d_cs_narrow",
+        "route": "cuda",
+        "source": "delivr_cfos_tpu_torch/csrc/conv3d_cs.cu",
+        # the TPU kernel at even C_in below 16 (JAX pads odd C_in to even)
+        "replaces": "delivr_cfos_tpu/ops/pallas/conv3d_cs.py:374",
+        # the packed forward of phase 4b, its first conv
+        "launches": narrow_counts["narrow"],
+        "max_abs_err": narrow_row["max_abs_err"],
+        "ms": narrow_row["kernel_ms"],
+        "plain_ms": narrow_row["plain_ms"],
+        "bound_ms": narrow_row["bound_ms"],
+        "bound_by": narrow_row["bound_by"],
+        "library_ms": narrow_row["library_ms"],
+    }, {
+        "name": "conv3d_cs_gather",
+        "route": "cuda",
+        "source": "delivr_cfos_tpu_torch/csrc/conv3d_cs.cu",
+        # the TPU kernel at the wider C_in that are not multiples of 16
+        "replaces": "delivr_cfos_tpu/ops/pallas/conv3d_cs.py:374",
+        # phase 4c's forward: the sum over its 8 gather shapes
+        "launches": gather_counts["gather"],
+        "max_abs_err": max(r["max_abs_err"] for r in gather_rows + narrow_rows[:1]),
+        "ms": sum(r["kernel_ms"] for r in gather_rows),
+        "plain_ms": sum(r["plain_ms"] for r in gather_rows),
+        "bound_ms": sum(r["bound_ms"] for r in gather_rows),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in gather_rows)
+        else "operations",
+        "library_ms": sum(r["library_ms"] for r in gather_rows),
     }, {
         "name": "conv3d_cs_pack",
         "route": "cuda",

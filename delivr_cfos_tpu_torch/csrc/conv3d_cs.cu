@@ -19,7 +19,7 @@
 // from C_in = C_out = 32 up, so the full-resolution layers are bound by
 // operations (the C_in = 1 first conv is bound by bytes).
 //
-// Three kernels:
+// The kernels:
 //
 // - conv3d_cs_pack_kernel (bound by bytes): writes the conv's input once as
 //   xp (B, D + 2, H + 2, W + 2, C_in) bf16, zero-padded on the three spatial
@@ -79,17 +79,57 @@
 //   banks. The epilogue adds the bias in f32, rounds each channel's 8 voxels
 //   to bf16 once and writes them as one 16-byte store: a warp writes 512
 //   contiguous bytes of one channel plane, nothing through shared memory.
-// - conv3d_cs_gather_kernel (any other C_in): per chunk of 32 K columns, which
-//   cross tap boundaries so K = 27 * C_in is not padded, the block gathers the
-//   im2col tile straight from global memory and runs nvcuda::wmma.
+// - conv3d_cs_narrow_kernel (C1 + C2 <= 16 but not multiples of 16: a packed
+//   model's first conv, C_in = G, the convs of narrow models, C_in = 1 where
+//   W or C_out is not a multiple of 8; on the TPU the kernel above at even
+//   C_in, odd C_in padded by the JAX model, models/basic_unet_cs.py:50-58).
+//   Bound by bytes, the output's: at C 2 -> 64 it does 2 * 27 * 2 * 64 /
+//   (2 * (2 + 64)) = 52 operations a byte against the card's 295. One block
+//   a (z-plane d, batch b), 256 threads, 2 blocks an SM. Per band of rows
+//   (the whole 96 x 64 plane at C_in = 2; ops/conv3d_cs.py narrow_band_rows
+//   keeps a block's shared memory under 112 KB) it stages planes d - 1, d,
+//   d + 1 once as [plane][row + 2][W + 2][ce] bf16, C padded to an even ce
+//   with a zero channel, zeros around, the pair bias and the prologue applied
+//   once per staged value, with 16-byte loads along x. Then per pass of 32
+//   output channels (the pass's weights, [32][kp + 8] bf16, loaded once a band and
+//   pass: once a block at C_out <= 32 with one band) warp w takes tiles w,
+//   w + 8, .. of 32 voxels x 32 channels: mma.sync m16n8k16, K = 27 * ce
+//   padded to 16 (54 -> 64 at C = 2), tap-major with channel pairs
+//   innermost, so an A fragment's column pair is one 32-bit shared load at
+//   the row's word plus a tabulated K-pair offset, with no bounds test and
+//   no division; B by ldmatrix. The accumulators start at the bias; the
+//   epilogue takes the stats from the f32 values, rounds to bf16 once,
+//   transposes the tile into the warp's [channel][voxel] buffer with
+//   stmatrix.trans and writes each channel's 32 voxels as 64 contiguous
+//   bytes with 16-byte stores. A pass of 32 channels whatever C_out is keeps
+//   a channel's outputs and stats the same bits at every C_out (the packed
+//   first conv's windows equal each window alone). Measured
+//   (conv3d_cs_narrow_variants.py drops one phase at a time): it is bound by
+//   instruction latency at 2 blocks an SM, not by the stores -- at the packed
+//   first conv dropping the stores saves less than dropping the MMA loop. Alternatives timed
+//   while it was written were slower or no faster: items of 64 or 128 voxels
+//   a channel (128- and 256-byte runs; they spilled), pitches of the staged
+//   planes chosen against bank conflicts, passes of 64 channels split over
+//   warp pairs (slower at C_out = 32). wgmma and TMA are not used: at 52
+//   operations a byte the tensor cores are not the limit, and padding C to
+//   16 for the packed kernel would do 8x the multiply-adds at C = 2.
+// - conv3d_cs_gather_kernel (what is left: C_in above 16 and not a multiple
+//   of 16): per chunk of 32 K columns, which cross tap boundaries so K = 27 *
+//   C_in is not padded, the block gathers the im2col tile straight from
+//   global memory and runs nvcuda::wmma.
 //
-// The three conv kernels run one block per (C_out tile of 32, z-plane d,
-// batch b) walking its whole H*W plane in a fixed order, so the plane's stats
-// are reduced inside the block in a fixed order: no atomics, no second pass,
-// the same bits on every run (a TPU grid runs in order, Hopper blocks do not).
+// The packed, direct and gather kernels run one block per (C_out tile of 32,
+// z-plane d, batch b), the narrow kernel one block per (d, b) for all of
+// C_out, each walking its whole H*W plane in a fixed order, so the plane's
+// stats are reduced inside the block in a fixed order: no atomics, no second
+// pass, the same bits on every run (a TPU grid runs in order, Hopper blocks
+// do not).
 //
 // Left for later: wgmma and TMA on xp, multi-plane tiles for the small planes
-// of levels 3-4, weights resident per block, wider N tiles.
+// of levels 3-4, wider N tiles; for the narrow kernel, more warps in flight
+// (its 113 registers allow 2 blocks of 256 threads an SM) and an epilogue of
+// fewer instructions; a redesign of the gather kernel, which no shape of the
+// repository's models reaches at C_in <= 16 any more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,6 +163,15 @@ constexpr int PACK_THREADS = 256;
 constexpr int DIRECT_THREADS = 256;  // 8 warps: warp w holds channel group w & 3
 constexpr int DV = 8;                // x voxels a work unit
 constexpr int DC = 8;                // output channels a work unit
+// narrow path
+constexpr int NARROW_THREADS = 256;  // 8 warps
+constexpr int NARROW_WARPS = NARROW_THREADS / 32;
+constexpr int NARROW_MAX_C = 16;     // C1 + C2 the narrow conv takes
+constexpr int NMI = 2;               // 16-row mma blocks a warp tile
+constexpr int NTM = 16 * NMI;        // output voxels a warp tile
+constexpr int NTN = 32;              // output channels a warp tile (4 n8 blocks)
+constexpr int LDE = NTM + 8;         // epilogue row: one channel's NTM voxels, padded
+static_assert(NMI == 2 && NTN == 32, "the narrow epilogue's stmatrix.x4 takes 2 x 2 8x8 blocks");
 
 struct Args {
   const __nv_bfloat16* x1;
@@ -819,6 +868,335 @@ __global__ void __launch_bounds__(THREADS) conv3d_cs_gather_kernel(Args p) {
   if (p.stats != nullptr) store_stats(p, c_s, b, d, n0, s1, s2);
 }
 
+// ---------------------------------------------------------------------------
+// narrow conv on (B, D, C, H*W), C1 + C2 <= NARROW_MAX_C
+
+// Channels staged a voxel (C padded to even) and K = 27 * ce padded to 16.
+__host__ __device__ constexpr int narrow_ce(int c) { return c + (c & 1); }
+__host__ __device__ constexpr int narrow_kp(int ce) { return (27 * ce + 15) / 16 * 16; }
+
+// Shared memory, in this order (each part a multiple of 16 bytes but the
+// last): the warps' epilogue tiles [NARROW_WARPS][NTN][LDE] bf16, one pass's
+// weights [NTN][kp + 8] bf16, the stats partials [NARROW_WARPS][2][NTN] f32,
+// the K-pair offsets [kp / 2] int, and the band's input
+// [3][rb + 2][W + 2][ce] bf16.
+__host__ __device__ constexpr size_t narrow_smem_bytes(int ce, int rb, int W) {
+  return (size_t)NARROW_WARPS * NTN * LDE * 2 + (size_t)NTN * (narrow_kp(ce) + 8) * 2 +
+         (size_t)NARROW_WARPS * 2 * NTN * 4 + (size_t)narrow_kp(ce) / 2 * 4 +
+         (size_t)3 * (rb + 2) * (W + 2) * ce * 2;
+}
+
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1,
+                                                  uint32_t r2, uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16(hi)) << 16);
+}
+
+// Eight x voxels from x0 of channel ci at plane z, row y, after the prologue
+// (zeros past W, and for the pad channel ci == C1 + C2).
+__device__ __forceinline__ void narrow_load8(const Args& p, int b, int z, int y, int x0,
+                                             int ci, bool vec, __nv_bfloat16 (&v)[8]) {
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  if (ci >= p.C1 + p.C2) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) v[t] = zero;
+    return;
+  }
+  const __nv_bfloat16* src = channel_ptr(p, b, z, ci) + (size_t)y * p.W + x0;
+  if (vec) {
+    const uint4 q = *reinterpret_cast<const uint4*>(src);
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&q);
+#pragma unroll
+    for (int t = 0; t < 8; ++t) v[t] = prologue(p, b, ci, h[t]);
+  } else {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) v[t] = x0 + t < p.W ? prologue(p, b, ci, src[t]) : zero;
+  }
+}
+
+// One block a (d, b) plane. Per band of rb output rows: planes d - 1, d,
+// d + 1 staged once, rows r0 - 1 .. r0 + rows, columns -1 .. W, as
+// [pz][row][col][ce] bf16 with zeros outside the volume; then per pass of NTN
+// output channels, warp tiles of NTM voxels x NTN channels over the band.
+__global__ void __launch_bounds__(NARROW_THREADS, 2)
+    conv3d_cs_narrow_kernel(Args p, int rb, int vec_in, int vec_out) {
+  extern __shared__ __align__(16) unsigned char nsm[];
+  const int C = p.C1 + p.C2;
+  const int ce = narrow_ce(C);
+  const int cw = ce / 2;  // 32-bit words a staged voxel
+  const int kp = narrow_kp(ce);
+  const int ldw = kp + 8;  // weight row: one output channel's kp K values, padded
+  const int WP = p.W + 2;
+  const int ppw = (rb + 2) * WP * cw;  // words a staged plane
+  const int S = p.H * p.W;
+  const int cout8 = (p.Cout + 7) / 8 * 8;
+  const int passes = (p.Cout + NTN - 1) / NTN;
+  const int d = blockIdx.x;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  __nv_bfloat16* e_s = reinterpret_cast<__nv_bfloat16*>(nsm);
+  __nv_bfloat16* w_s = e_s + NARROW_WARPS * NTN * LDE;
+  float* red = reinterpret_cast<float*>(w_s + NTN * ldw);
+  int* off_s = reinterpret_cast<int*>(red + NARROW_WARPS * 2 * NTN);
+  uint32_t* in_s = reinterpret_cast<uint32_t*>(off_s + kp / 2);
+  const uint32_t e_warp = (uint32_t)__cvta_generic_to_shared(e_s + warp * NTN * LDE);
+  const uint32_t w_s0 = (uint32_t)__cvta_generic_to_shared(w_s);
+
+  // word offset of K pair q (tap-major, channel pairs innermost) from an
+  // output voxel's word in plane 0; the K pad repeats the last pair's (its
+  // weights are zero), so its loads read words the warp reads anyway
+  for (int q = tid; q < kp / 2; q += NARROW_THREADS) {
+    const int tap = min(q / cw, 26);
+    const int cp = q / cw < 27 ? q - tap * cw : cw - 1;
+    off_s[q] = (tap / 9) * ppw + (((tap / 3) % 3) * WP + tap % 3) * cw + cp;
+  }
+
+  auto load_weights = [&](int n0) {
+    const int rows = min(NTN, cout8 - n0);
+    const int chunks = kp / 8;
+    for (int i = tid; i < rows * chunks; i += NARROW_THREADS) {
+      const int r = i / chunks;
+      const int c = i - r * chunks;
+      *reinterpret_cast<uint4*>(w_s + r * ldw + 8 * c) =
+          *reinterpret_cast<const uint4*>(p.w + (size_t)(n0 + r) * kp + 8 * c);
+    }
+  };
+
+  // ldmatrix row address of this lane: matrix (lane >> 3) = (n8 block
+  // 2 jp + (lane >> 4), K half (lane >> 3) & 1), row lane & 7
+  const int mat = lane >> 3;
+  const uint32_t b_lane = (uint32_t)(((8 * (mat >> 1) + (lane & 7)) * ldw + 8 * (mat & 1)) * 2);
+  // stmatrix row address of this lane: matrix (lane >> 3) = (mi, h), row
+  // lane & 7 is output channel 8 j + (lane & 7), voxels 16 mi + 8 h ..
+  const uint32_t e_lane = e_warp + (uint32_t)(((lane & 7) * LDE + 8 * mat) * 2);
+
+  float s1[4][2], s2[4][2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) s1[j][0] = s1[j][1] = s2[j][0] = s2[j][1] = 0.f;
+  const size_t plane_out = ((size_t)b * p.D + d) * p.Cout;
+
+  for (int r0 = 0; r0 < p.H; r0 += rb) {
+    const int rows = min(rb, p.H - r0);
+    const int V = rows * p.W;  // output voxels of the band
+    __syncthreads();  // the last band's reads of in_s and w_s are done
+    {
+      // unit u: 8 x voxels of channel pair cp of one staged row
+      const int G8 = (p.W + 7) / 8;
+      const int units = 3 * (rows + 2) * G8 * cw;
+      for (int u = tid; u < units; u += NARROW_THREADS) {
+        const int cp = u % cw;
+        const int r = u / cw;
+        const int j = r % G8;
+        const int zr = r / G8;
+        const int pz = zr / (rows + 2);
+        const int pr = zr - pz * (rows + 2);
+        const int z = d + pz - 1;
+        const int y = r0 + pr - 1;
+        uint32_t* row = in_s + pz * ppw + pr * WP * cw + cp;
+        __nv_bfloat16 lo[8], hi[8];
+        if (z >= 0 && z < p.D && y >= 0 && y < p.H) {
+          narrow_load8(p, b, z, y, 8 * j, 2 * cp, vec_in, lo);
+          narrow_load8(p, b, z, y, 8 * j, 2 * cp + 1, vec_in, hi);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) lo[e] = hi[e] = __float2bfloat16(0.f);
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (8 * j + e < p.W) {  // column c holds x = c - 1
+            row[(8 * j + e + 1) * cw] = (uint32_t)__bfloat16_as_ushort(lo[e]) |
+                                        ((uint32_t)__bfloat16_as_ushort(hi[e]) << 16);
+          }
+        }
+        if (j == 0) row[0] = 0u;                     // x = -1
+        if (j == G8 - 1) row[(p.W + 1) * cw] = 0u;  // x = W
+      }
+    }
+    if (passes > 1 || r0 == 0) load_weights(0);
+    __syncthreads();
+
+    for (int pass = 0; pass < passes; ++pass) {
+      const int n0 = pass * NTN;
+      if (pass > 0) {
+        __syncthreads();  // the last pass's reads of w_s (and red) are done
+        load_weights(n0);
+        __syncthreads();
+      }
+      // warp w takes tiles w, w + 8, .. of the pass's NTN channels: a
+      // channel's outputs and stats come out the same bits whatever C_out
+      // is (the packed first conv's window equals that window alone)
+      const int ntl = min(NTN, cout8 - n0) / 8;  // n8 blocks of this pass
+      float bias[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + 8 * j + 2 * t + e;
+          bias[j][e] = p.bias != nullptr && n < p.Cout ? p.bias[n] : 0.f;
+        }
+      }
+      const uint32_t b_warp = w_s0 + b_lane;
+      const int n_tiles = (V + NTM - 1) / NTM;
+
+      for (int tile = warp; tile < n_tiles; tile += NARROW_WARPS) {
+        const int m0 = tile * NTM;  // first band voxel of the tile
+        // this lane's rows: voxel (y, x) of the band from one division a tile
+        int base[NMI][2];
+        bool ok[NMI][2];
+        {
+          int y = m0 / p.W;
+          int x = m0 - y * p.W + g;
+#pragma unroll
+          for (int q = 0; q < 2 * NMI; ++q) {
+            if (q > 0) x += 8;
+            while (x >= p.W) {
+              x -= p.W;
+              ++y;
+            }
+            ok[q >> 1][q & 1] = m0 + 8 * q + g < V;
+            // a row past the band reads the band's first voxel, and is dropped
+            base[q >> 1][q & 1] = ok[q >> 1][q & 1] ? (y * WP + x) * cw : 0;
+          }
+        }
+        float acc[NMI][4][4];
+#pragma unroll
+        for (int mi = 0; mi < NMI; ++mi) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            acc[mi][j][0] = acc[mi][j][2] = bias[j][0];
+            acc[mi][j][1] = acc[mi][j][3] = bias[j][1];
+          }
+        }
+#pragma unroll 4
+        for (int s = 0; s < kp / 16; ++s) {
+          const int o_lo = off_s[8 * s + t];
+          const int o_hi = off_s[8 * s + 4 + t];
+          uint32_t af[NMI][4];
+#pragma unroll
+          for (int mi = 0; mi < NMI; ++mi) {
+            af[mi][0] = in_s[base[mi][0] + o_lo];
+            af[mi][1] = in_s[base[mi][1] + o_lo];
+            af[mi][2] = in_s[base[mi][0] + o_hi];
+            af[mi][3] = in_s[base[mi][1] + o_hi];
+          }
+          uint32_t bq[2][4];
+          ldmatrix_x4(bq[0], b_warp + (uint32_t)(16 * s * 2));
+          if (ntl > 2) ldmatrix_x4(bq[1], b_warp + (uint32_t)((16 * ldw + 16 * s) * 2));
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (j < ntl) {
+#pragma unroll
+              for (int mi = 0; mi < NMI; ++mi) {
+                mma_bf16(acc[mi][j], af[mi], bq[j >> 1][(j & 1) * 2],
+                         bq[j >> 1][(j & 1) * 2 + 1]);
+              }
+            }
+          }
+        }
+
+        // epilogue: stats from the f32 values, one bf16 rounding, the tile
+        // transposed by stmatrix into the warp's [channel][voxel] buffer, then
+        // 16-byte stores: a channel's NTM voxels are 64 contiguous bytes
+        if (p.stats != nullptr) {
+#pragma unroll
+          for (int mi = 0; mi < NMI; ++mi) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (ok[mi][h]) {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) {
+#pragma unroll
+                  for (int e = 0; e < 2; ++e) {
+                    const float v = acc[mi][j][2 * h + e];
+                    s1[j][e] += v;
+                    s2[j][e] = fmaf(v, v, s2[j][e]);
+                  }
+                }
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (j < ntl) {
+            stmatrix_x4_trans(e_lane + (uint32_t)(8 * j * LDE * 2),
+                              pack_bf16(acc[0][j][0], acc[0][j][1]),
+                              pack_bf16(acc[0][j][2], acc[0][j][3]),
+                              pack_bf16(acc[1][j][0], acc[1][j][1]),
+                              pack_bf16(acc[1][j][2], acc[1][j][3]));
+          }
+        }
+        __syncwarp();
+        const __nv_bfloat16* e_w = e_s + warp * NTN * LDE;
+        // channel n0, voxel m0 of the band
+        __nv_bfloat16* o_item = p.out + (plane_out + n0) * S + (size_t)r0 * p.W + m0;
+        const int ncol = min(8 * ntl, p.Cout - n0);  // channels of the tile
+        if (vec_out) {
+          const int c8 = 8 * (lane & 3);  // 4 lanes a channel
+#pragma unroll
+          for (int k = 0; k < NTN / 8; ++k) {
+            const int col = 8 * k + (lane >> 2);
+            if (col < ncol && m0 + c8 < V) {
+              *reinterpret_cast<uint4*>(o_item + (size_t)col * S + c8) =
+                  *reinterpret_cast<const uint4*>(e_w + col * LDE + c8);
+            }
+          }
+        } else {
+          for (int col = 0; col < ncol; ++col) {
+            if (m0 + lane < V) o_item[(size_t)col * S + lane] = e_w[col * LDE + lane];
+          }
+        }
+        __syncwarp();  // the buffer is rewritten by the next tile
+      }
+
+      if (p.stats != nullptr) {
+        // the band's partials: a fixed xor tree over the 8 lanes that share
+        // a column, then the 8 warps in order, added to the earlier bands'
+        // sums (this block owns the plane's stats)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+#pragma unroll
+            for (int o = 4; o < 32; o <<= 1) {
+              s1[j][e] += __shfl_xor_sync(0xffffffffu, s1[j][e], o);
+              s2[j][e] += __shfl_xor_sync(0xffffffffu, s2[j][e], o);
+            }
+            if (lane < 4) {
+              red[(warp * 2) * NTN + 8 * j + 2 * lane + e] = s1[j][e];
+              red[(warp * 2 + 1) * NTN + 8 * j + 2 * lane + e] = s2[j][e];
+            }
+            s1[j][e] = s2[j][e] = 0.f;
+          }
+        }
+        __syncthreads();
+        if (tid < 2 * NTN) {
+          const int q = tid / NTN;
+          const int col = tid - q * NTN;
+          if (n0 + col < p.Cout) {
+            float sum = 0.f;
+            for (int w = 0; w < NARROW_WARPS; ++w) sum += red[(w * 2 + q) * NTN + col];
+            float* dst = p.stats + (((size_t)b * p.D + d) * 2 + q) * p.Cout + n0 + col;
+            *dst = r0 == 0 ? sum : *dst + sum;
+          }
+        }
+        // red is next written after a __syncthreads: the next pass's or band's
+      }
+    }
+  }
+}
+
 template <int TMP>
 int launch_packed(const PackedArgs& p, cudaStream_t s) {
   const size_t smem = (size_t)STAGES * packed_stage_elems(TMP, p.W) * 2;
@@ -936,14 +1314,20 @@ extern "C" int conv3d_cs_direct_launch(const void* x, const void* w, const void*
 
 // Registers a thread and resident blocks an SM of the kernel that takes a
 // plane of width W: the packed kernel with tm rows (256 or 128), the direct
-// kernel with bands of rb rows (tm 1), or the gather kernel (tm 0), as the
-// card reports them.
-extern "C" int conv3d_cs_resources(int tm, int rb, int W, int* regs, int* blocks_per_sm) {
+// kernel with bands of rb rows (tm 1), the narrow kernel on C input channels
+// with bands of rb rows (tm 2), or the
+// gather kernel (tm 0), as the card reports them.
+extern "C" int conv3d_cs_resources(int tm, int rb, int W, int C, int* regs,
+                                   int* blocks_per_sm) {
   const void* fn = reinterpret_cast<const void*>(conv3d_cs_gather_kernel);
   int threads = THREADS;
   size_t smem = 0;
-  if (tm == 256 || tm == 128 || tm == 1) {
-    if (tm == 1) {
+  if (tm == 256 || tm == 128 || tm == 1 || tm == 2) {
+    if (tm == 2) {
+      fn = reinterpret_cast<const void*>(conv3d_cs_narrow_kernel);
+      threads = NARROW_THREADS;
+      smem = narrow_smem_bytes(narrow_ce(C), rb, W);
+    } else if (tm == 1) {
       fn = reinterpret_cast<const void*>(conv3d_cs_direct_kernel);
       threads = DIRECT_THREADS;
       smem = (size_t)direct_smem_floats(rb, W) * 4;
@@ -981,5 +1365,41 @@ extern "C" int conv3d_cs_gather_launch(const void* x1, const void* x2,
   p.Cout = Cout;
   const dim3 grid((Cout + TN - 1) / TN, D, B);
   conv3d_cs_gather_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The narrow conv on (B, D, C, H*W) itself, C1 + C2 <= 16: w from
+// narrow_weights in ops/conv3d_cs.py, (ceil(Cout / 8) * 8, kp) bf16, row n
+// holding K = tap * ce + ci (zero rows past C_out, zero columns for the pad
+// channel of an odd C and past 27 * ce); bands of rb output rows. 16-byte
+// loads where W % 8 == 0 and x1, x2 are 16-byte aligned, 16-byte stores where
+// H*W and rb*W are multiples of 8.
+extern "C" int conv3d_cs_narrow_launch(const void* x1, const void* x2,
+                                       const void* pair_bias, const void* w,
+                                       const void* bias, const void* aff_a,
+                                       const void* aff_c, void* out, void* stats,
+                                       int B, int D, int C1, int C2, int Cout, int H,
+                                       int W, int rb, void* stream) {
+  if (C1 + C2 < 1 || C1 + C2 > NARROW_MAX_C || rb < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args p = make_args(x1, x2, pair_bias, aff_a, aff_c, B, D, C1, C2, H, W);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.stats = static_cast<float*>(stats);
+  p.Cout = Cout;
+  const size_t smem = narrow_smem_bytes(narrow_ce(C1 + C2), rb, W);
+  cudaError_t err = cudaFuncSetAttribute(conv3d_cs_narrow_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int vec_in = W % 8 == 0 && reinterpret_cast<uintptr_t>(x1) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(x2) % 16 == 0;
+  const int vec_out = (H * W) % 8 == 0 && (rb * W) % 8 == 0 &&
+                      reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const dim3 grid(D, B);
+  conv3d_cs_narrow_kernel<<<grid, NARROW_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, rb, vec_in, vec_out);
   return static_cast<int>(cudaGetLastError());
 }

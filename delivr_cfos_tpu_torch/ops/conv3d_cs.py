@@ -11,14 +11,18 @@ rounding, (B, D, 2, C_out) f32; ``pair=(x2, w2[, bias2])`` convolves
 concat([x, bf16(x2 + bf16(bias2))]); ``in_affine=(a, c)`` applies
 bf16(mish(x·a + c)) to the input. Odd C_in is taken as is.
 
-Three paths on the card, by a fixed shape rule (``conv3d_cs_path``):
+Four paths on the card, by a fixed shape rule (``conv3d_cs_path``):
 ``packed`` where C1 and C2 are multiples of 16 — ``conv3d_cs_pack`` writes
 the conv's input once as xp (B, D+2, H+2, W+2, C_in), zero-padded, channels
 innermost, with the concat, pair bias and prologue applied, and the packed
 conv kernel reads it with 16-byte copies; ``direct`` for C_in = 1 with W
 and C_out multiples of 8 (the first conv), a stencil of f32 FMAs on input
-planes staged in shared memory; and ``gather`` for any other C_in, which
-gathers its im2col tiles from (B, D, C, H·W) itself.
+planes staged in shared memory; ``narrow`` for C1 + C2 ≤ ``NARROW_MAX``
+(the packed first conv, narrow models), tensor-core MMAs on input planes
+staged in shared memory once per band, channels innermost, with resident
+weights; and ``gather`` for the rest (wider channel counts that are not
+multiples of 16), which gathers its im2col tiles from (B, D, C, H·W)
+itself.
 """
 
 from __future__ import annotations
@@ -35,6 +39,12 @@ TN = 32  # output channels per block of the packed conv
 TAIL = 256  # voxels of storage past xp's end: the largest tile the conv reads past it
 DIRECT_MAX_W = 2048  # widest plane the direct conv takes (bands of 2 rows)
 DIRECT_BAND_BYTES = 100 * 1024  # f32 input rows a direct block stages: 2 blocks an SM
+NARROW_MAX = 16  # C1 + C2 the narrow conv takes (the kernel's NARROW_MAX_C)
+NARROW_SMEM_BYTES = 112 * 1024  # shared memory of a narrow block: 2 blocks an SM
+NARROW_PASS = 32  # output channels a narrow block computes per pass over its staged input
+# the narrow kernel's fixed shared memory besides weights and input: 8 warps'
+# epilogue tiles (32 channels × 40 bf16) and stats partials (2 × 32 f32)
+_NARROW_FIXED = 8 * 32 * 40 * 2 + 8 * 2 * 32 * 4
 
 
 def _mish(v: torch.Tensor) -> torch.Tensor:
@@ -55,7 +65,45 @@ def conv3d_cs_path(c1: int, c2: int, w: int, cout: int) -> str:
         return "packed"
     if c1 == 1 and c2 == 0 and w % 8 == 0 and w <= DIRECT_MAX_W and cout % 8 == 0:
         return "direct"
+    if _narrow_takes(c1 + c2, w):
+        return "narrow"
     return "gather"
+
+
+def narrow_k(cin: int) -> int:
+    """K of the narrow conv: 27 taps × C_in padded to even, padded to 16."""
+    return -(-27 * (cin + cin % 2) // 16) * 16
+
+
+def narrow_smem_bytes(cin: int, rows: int, w: int) -> int:
+    """Shared memory of a narrow block (the kernel's narrow_smem_bytes):
+    epilogue tiles, stats partials, one pass's weights, the K-pair offsets
+    and three bf16 input planes of ``rows`` + 2 rows × (W + 2) voxels."""
+    ce, kp = cin + cin % 2, narrow_k(cin)
+    return (_NARROW_FIXED + NARROW_PASS * (kp + 8) * 2 + kp // 2 * 4
+            + 3 * (rows + 2) * (w + 2) * ce * 2)
+
+
+def _narrow_fit_rows(cin: int, w: int) -> int:
+    """Most output rows a narrow block's band holds within
+    ``NARROW_SMEM_BYTES`` (below 1: not one row fits)."""
+    per_row = 3 * (w + 2) * (cin + cin % 2) * 2
+    return (NARROW_SMEM_BYTES - narrow_smem_bytes(cin, 0, w)) // per_row
+
+
+def _narrow_takes(cin: int, w: int) -> bool:
+    """Whether the narrow conv takes C_in input channels on planes W wide."""
+    return cin <= NARROW_MAX and _narrow_fit_rows(cin, w) >= 1
+
+
+def narrow_band_rows(cin: int, h: int, w: int) -> int:
+    """Output rows a narrow block stages at once: the whole plane where it
+    fits (the packed first conv's 96 × 64 plane at C_in = 2), else the
+    fewest bands that fit, of equal rows."""
+    fit = min(h, _narrow_fit_rows(cin, w))
+    if fit < 1:
+        raise ValueError(f"the narrow conv cannot stage one row of {w} voxels × {cin} channels")
+    return -(-h // -(-h // fit))
 
 
 def direct_band_rows(h: int, w: int) -> int:
@@ -213,6 +261,25 @@ def kernel_weights(weights, w2=None):
     return cat.reshape(-1, cout).contiguous()
 
 
+def narrow_weights(weights, w2=None):
+    """DHWIO weights (and pair mode's ``w2``) → the narrow conv's layout,
+    (⌈C_out/8⌉·8, ``narrow_k(C_in)``) bf16: row n holds output channel n's
+    K values, k = ((dz·3 + dy)·3 + dx)·C_e + ci with C_e = C_in padded to
+    even; zeros for the pad channel, past 27·C_e and past C_out. One zero
+    fill and one cast-copy per input (the module weights' DHWIO view is
+    read in place)."""
+    c1, cout = weights.shape[3], weights.shape[4]
+    cin = c1 + (0 if w2 is None else w2.shape[3])
+    ce = cin + cin % 2
+    out = torch.zeros((-(-cout // 8) * 8, narrow_k(cin)), dtype=torch.bfloat16,
+                      device=weights.device)
+    taps = out[:cout, :27 * ce].view(cout, 27, ce)
+    taps[:, :, :c1] = weights.reshape(27, c1, cout).permute(2, 0, 1)
+    if w2 is not None:
+        taps[:, :, c1:cin] = w2.reshape(27, cin - c1, cout).permute(2, 0, 1)
+    return out
+
+
 def block_weights(w_k):
     """(27·C_in, C_out) → the packed conv's layout, (⌈C_out/32⌉, 27·C_in, 32)
     bf16: C_out zero-padded to a multiple of 32 and cut into one block's
@@ -309,6 +376,18 @@ def _gather(x, x2, pb, w_k, bias, a, c, h, w, emit_stats):
     return res
 
 
+def _narrow(x, x2, pb, weights, w2, bias, a, c, h, w, emit_stats):
+    b_, n_d, c1, _ = x.shape
+    c2 = 0 if x2 is None else x2.shape[2]
+    cout = weights.shape[-1]
+    res = _launch(_launcher().conv3d_cs_narrow_launch, x,
+                  (x, x2, pb, narrow_weights(weights, w2), bias, a, c),
+                  (b_, n_d, c1, c2, cout, h, w, narrow_band_rows(c1 + c2, h, w)),
+                  emit_stats, cout)
+    conv3d_cs_narrow.launches += 1
+    return res
+
+
 def _direct(x, w_k, bias, a, c, h, w, emit_stats):
     b_, n_d, _, _ = x.shape
     cout = w_k.shape[1]
@@ -332,6 +411,8 @@ def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
     c2 = 0 if x2 is None else x2.shape[2]
     cout = weights.shape[-1]
     path = conv3d_cs_path(x.shape[2], c2, w, cout)
+    if path == "narrow":
+        return _narrow(x, x2, pb, weights, w2, bias, a, c, h, w, emit_stats)
     w_k = kernel_weights(weights, w2)
     if path == "packed":
         # xp is freed on return: the allocator orders its reuse on the stream
@@ -343,11 +424,29 @@ def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
     return _gather(x, x2, pb, w_k, bias, a, c, h, w, emit_stats)
 
 
+def conv3d_cs_narrow(x, weights, bias, *, h, w, in_affine=None,
+                     emit_stats=False, pair=None):
+    """``conv3d_cs`` on the narrow kernel whatever the path rule says (the
+    plain version on a CPU tensor); raises unless C1 + C2 ≤ ``NARROW_MAX``
+    and a band of one row fits its shared memory."""
+    if x.device.type == "cpu":
+        return conv3d_cs_reference(
+            x, weights, bias, h=h, w=w, in_affine=in_affine,
+            emit_stats=emit_stats, pair=pair,
+        )
+    x2, w2, _, pb, a, c = _checked(x, weights, bias, h, w, in_affine, pair)
+    cin = x.shape[2] + (0 if x2 is None else x2.shape[2])
+    if not _narrow_takes(cin, w):
+        raise ValueError(f"the narrow conv takes C1 + C2 <= {NARROW_MAX} on planes whose "
+                         f"band of one row fits, got C_in {cin}, W {w}")
+    return _narrow(x, x2, pb, weights, w2, bias, a, c, h, w, emit_stats)
+
+
 def conv3d_cs_gather(x, weights, bias, *, h, w, in_affine=None,
                      emit_stats=False, pair=None):
     """``conv3d_cs`` on the gather kernel whatever the shape (the plain
-    version on a CPU tensor): the path of the shapes the other two kernels
-    do not take, and a yardstick for the direct kernel at the first conv."""
+    version on a CPU tensor): the path of the wider channel counts that are
+    not multiples of 16, and a yardstick for the narrow kernel."""
     if x.device.type == "cpu":
         return conv3d_cs_reference(
             x, weights, bias, h=h, w=w, in_affine=in_affine,
@@ -376,15 +475,18 @@ def conv3d_cs_direct(x, weights, bias, *, h, w, in_affine=None,
 conv3d_cs.launches = 0
 conv3d_cs_gather.launches = 0
 conv3d_cs_direct.launches = 0
+conv3d_cs_narrow.launches = 0
 
 
-def conv3d_cs_resources(path: str, h: int, w: int) -> tuple[int, int]:
+def conv3d_cs_resources(path: str, h: int, w: int, cin: int = 2) -> tuple[int, int]:
     """(registers a thread, resident blocks an SM) of the conv kernel of
-    ``path`` (``conv3d_cs_path``) on an H×W plane, as the card reports them."""
-    tm = {"packed": packed_tile_rows(h, w), "direct": 1, "gather": 0}[path]
+    ``path`` (``conv3d_cs_path``) on an H×W plane (with ``cin`` input
+    channels on the narrow path), as the card reports them."""
+    tm = {"packed": packed_tile_rows(h, w), "direct": 1, "narrow": 2, "gather": 0}[path]
+    rb = narrow_band_rows(cin, h, w) if path == "narrow" else direct_band_rows(h, w)
     regs, blocks = ctypes.c_int(), ctypes.c_int()
-    err = _launcher().conv3d_cs_resources(tm, direct_band_rows(h, w), w,
-                                          ctypes.byref(regs), ctypes.byref(blocks))
+    err = _launcher().conv3d_cs_resources(tm, rb, w, cin, ctypes.byref(regs),
+                                          ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"conv3d_cs_resources failed: CUDA error {err}")
     return regs.value, blocks.value
@@ -401,10 +503,12 @@ def _launcher():
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.conv3d_cs_packed_launch.argtypes = (
             [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.conv3d_cs_narrow_launch.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.conv3d_cs_resources.argtypes = (
-            [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2)
+            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2)
         for fn in (lib.conv3d_cs_gather_launch, lib.conv3d_cs_direct_launch,
                    lib.conv3d_cs_pack_launch, lib.conv3d_cs_packed_launch,
-                   lib.conv3d_cs_resources):
+                   lib.conv3d_cs_narrow_launch, lib.conv3d_cs_resources):
             fn.restype = ctypes.c_int
     return lib

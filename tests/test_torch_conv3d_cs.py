@@ -22,14 +22,20 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     conv3d_cs,
     conv3d_cs_direct,
     conv3d_cs_gather,
+    conv3d_cs_narrow,
     conv3d_cs_pack,
     conv3d_cs_pack_reference,
     conv3d_cs_path,
     conv3d_cs_reference,
     direct_band_rows,
     kernel_weights,
+    narrow_band_rows,
+    narrow_k,
+    narrow_smem_bytes,
+    narrow_weights,
     packed_tile_rows,
 )
+from delivr_cfos_tpu_torch.ops.conv3d_cs import NARROW_MAX, NARROW_SMEM_BYTES
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, D, H, W = 2, 5, 6, 8
@@ -252,7 +258,8 @@ def test_conv_of_the_packed_input_matches_jax(kind, h, w):
 
 def test_path_rule_and_block_weights():
     assert conv3d_cs_path(32, 0, 64, 32) == conv3d_cs_path(32, 32, 64, 32) == "packed"
-    assert conv3d_cs_path(1, 0, 64, 4) == conv3d_cs_path(16, 8, 64, 32) == "gather"
+    assert conv3d_cs_path(1, 0, 64, 4) == "narrow"
+    assert conv3d_cs_path(16, 8, 64, 32) == "gather"
     # 256-row tiles on the level-0/1/2 planes, 128 on levels 3-4
     assert [packed_tile_rows(96 >> i, 64 >> i) for i in range(5)] == [256, 256, 256, 128, 128]
     w = torch.arange(27 * 16 * 40, dtype=torch.float32).reshape(3, 3, 3, 16, 40)
@@ -266,15 +273,85 @@ def test_path_rule_and_block_weights():
 
 @pytest.mark.parametrize("c1,c2,w,cout,path", [
     (1, 0, 64, 32, "direct"),  # the first conv, 1 -> 32 on the 96 x 64 plane
-    (1, 0, 7, 32, "gather"),  # W not a multiple of 8
-    (1, 0, 64, 4, "gather"),  # C_out not a multiple of 8
-    (3, 0, 64, 32, "gather"),  # C_in neither 1 nor a multiple of 16
-    (1, 0, 4096, 32, "gather"),  # wider than the direct conv's bands take
-    (1, 8, 64, 32, "gather"),  # pair mode never takes the direct conv
+    (1, 0, 7, 32, "narrow"),  # W not a multiple of 8
+    (1, 0, 64, 4, "narrow"),  # C_out not a multiple of 8
+    (3, 0, 64, 32, "narrow"),  # C_in neither 1 nor a multiple of 16
+    (1, 0, 4096, 32, "gather"),  # wider than the direct and narrow convs' bands take
+    (1, 8, 64, 32, "narrow"),  # pair mode never takes the direct conv
     (16, 16, 7, 4, "packed"),
+    (2, 0, 64, 64, "narrow"),  # the packed first conv at G = 2
+    (NARROW_MAX - 6, 6, 64, 32, "narrow"),  # C1 + C2 = NARROW_MAX
+    (NARROW_MAX + 1, 0, 64, 32, "gather"),  # one more, not a multiple of 16
+    (NARROW_MAX - 7, 8, 64, 32, "gather"),
+    (8, 0, 1024, 32, "gather"),  # not one row of the plane fits
 ])
 def test_conv3d_cs_path_rule(c1, c2, w, cout, path):
     assert conv3d_cs_path(c1, c2, w, cout) == path
+
+
+@pytest.mark.parametrize("cin,h,w", [
+    (2, 96, 64), (4, 96, 64), (3, 7, 9), (8, 48, 32), (NARROW_MAX, 96, 64),
+    (1, 20, 1000),
+])
+def test_narrow_band_rows_fit_two_blocks_an_sm(cin, h, w):
+    rows = narrow_band_rows(cin, h, w)
+    assert 1 <= rows <= h
+    assert narrow_smem_bytes(cin, rows, w) <= NARROW_SMEM_BYTES
+    # equal bands: the fewest that fit, none of them short by more than a row
+    bands = -(-h // rows)
+    assert bands == 1 or narrow_smem_bytes(cin, -(-h // (bands - 1)), w) > NARROW_SMEM_BYTES
+    assert rows * (bands - 1) < h
+    # 2 blocks an SM: the H100's 228 KB an SM less 1 KB a block
+    assert 2 * (NARROW_SMEM_BYTES + 1024) <= 228 * 1024
+    # the packed first conv's whole 96 x 64 plane in one band
+    if (cin, h, w) == (2, 96, 64):
+        assert rows == 96
+    with pytest.raises(ValueError):
+        narrow_band_rows(cin, h, 100_000)
+
+
+@pytest.mark.parametrize("c1,c2,cout", [(2, 0, 64), (3, 0, 6), (1, 0, 4), (4, 5, 40),
+                                         (NARROW_MAX, 0, 8)])
+def test_narrow_weights_layout(c1, c2, cout):
+    """The narrow kernel's weights against kernel_weights: row n is output
+    channel n, column k = tap·C_e + ci (C_e = C_in padded to even), zero
+    for the pad channel of an odd C_in, past 27·C_e (K padded to 16) and
+    past C_out (rows padded to 8)."""
+    g = torch.Generator().manual_seed(c1 * 10 + c2)
+    w1 = torch.randn((3, 3, 3, c1, cout), generator=g)
+    w2 = torch.randn((3, 3, 3, c2, cout), generator=g) if c2 else None
+    cin = c1 + c2
+    ce = cin + cin % 2
+    kp = narrow_k(cin)
+    assert kp % 16 == 0 and 27 * ce <= kp < 27 * ce + 16
+    assert narrow_k(2) == 64  # 54 padded to 64
+    wn = narrow_weights(w1, w2)
+    assert wn.dtype == torch.bfloat16 and wn.is_contiguous()
+    assert wn.shape == (-(-cout // 8) * 8, kp)
+    w_k = kernel_weights(w1, w2)  # (27·C_in, C_out)
+    taps = wn[:cout, :27 * ce].reshape(cout, 27, ce)
+    assert torch.equal(taps[:, :, :cin], w_k.reshape(27, cin, cout).permute(2, 0, 1))
+    assert not taps[:, :, cin:].any()
+    assert not wn[:, 27 * ce:].any() and not wn[cout:].any()
+
+
+def test_packed_first_conv_shape_matches_jax():
+    """The packed first conv (C_in = 2 → 64, with stats) on a small plane:
+    the plain version against the JAX kernel in interpret mode, one bf16
+    ULP, stats rtol 1e-3; the narrow and gather wrappers on a CPU tensor
+    are that plain version and count no launch."""
+    x, w, _ = _inputs(np.random.default_rng(17), 2, 64)
+    want, st_want = jax_conv3d_cs(jnp.asarray(x), jnp.asarray(w), None,
+                                  h=H, w=W, interpret=True, emit_stats=True)
+    assert conv3d_cs_path(2, 0, W, 64) == "narrow"
+    before = (conv3d_cs.launches, conv3d_cs_narrow.launches, conv3d_cs_gather.launches)
+    got, st = conv3d_cs(_bf16(x), _t(w), None, h=H, w=W, emit_stats=True)
+    assert_within_one_ulp(_np(got), want)
+    assert_stats_close(st.numpy(), st_want)
+    for fn in (conv3d_cs_narrow, conv3d_cs_gather):
+        again, st_again = fn(_bf16(x), _t(w), None, h=H, w=W, emit_stats=True)
+        assert torch.equal(again, got) and torch.equal(st_again, st)
+    assert (conv3d_cs.launches, conv3d_cs_narrow.launches, conv3d_cs_gather.launches) == before
 
 
 def test_direct_band_rows_fit_the_band_bytes():

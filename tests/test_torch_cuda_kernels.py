@@ -16,13 +16,17 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     conv3d_cs,
     conv3d_cs_direct,
     conv3d_cs_gather,
+    conv3d_cs_narrow,
     conv3d_cs_pack,
     conv3d_cs_pack_reference,
     conv3d_cs_packed,
     conv3d_cs_path,
     conv3d_cs_reference,
+    conv3d_cs_resources,
     kernel_weights,
+    narrow_band_rows,
 )
+from delivr_cfos_tpu_torch.ops.conv3d_cs import NARROW_MAX
 from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
     MAX_C,
     deconv2x_cs,
@@ -57,8 +61,8 @@ def _ulps(got, want):
 
 
 @pytest.mark.parametrize("b,d,h,w,cin,c2,cout,affine", [
-    # gather path (C_in not a multiple of 16): odd C_in, the affine
-    # prologue, pair mode
+    # narrow path (C1 + C2 <= NARROW_MAX, not multiples of 16): odd C_in,
+    # the affine prologue, pair mode
     (2, 5, 6, 8, 1, 0, 4, False),
     (2, 5, 6, 8, 3, 0, 6, True),
     (1, 4, 9, 7, 4, 5, 40, False),
@@ -87,9 +91,9 @@ def test_conv3d_cs_kernel_matches_plain_version(dev, b, d, h, w, cin, c2, cout,
                       rnd(3, 3, 3, c2, cout, scale=0.2), rnd(c2))
     if affine:
         kw["in_affine"] = (rnd(b, cin).abs() + 0.5, rnd(b, cin, scale=0.3))
-    # C_in = 1 with C_out = 4 stays on the gather kernel
+    # C_in = 1 with C_out = 4 takes the narrow kernel, not the direct one
     packed = cin % 16 == 0 and c2 % 16 == 0
-    assert conv3d_cs_path(cin, c2, w, cout) == ("packed" if packed else "gather")
+    assert conv3d_cs_path(cin, c2, w, cout) == ("packed" if packed else "narrow")
     before = conv3d_cs.launches
     got, st = conv3d_cs(x, wt, bias, h=h, w=w, emit_stats=True, **kw)
     torch.cuda.synchronize()
@@ -257,6 +261,100 @@ def test_conv3d_cs_direct_kernel_matches_plain_version(dev, b, d, h, w, cout, ex
     torch.testing.assert_close(
         st_g, st_want, rtol=1e-3, atol=1e-3 * float(st_want.abs().max())
     )
+
+
+@pytest.mark.parametrize("b,d,h,w,c1,c2,cout,affine", [
+    (2, 5, 6, 8, 1, 0, 4, False),  # C_in 1, C_out 4: one n8 block
+    (2, 4, 96, 64, 2, 0, 64, False),  # the packed first conv's plane, one band
+    (1, 3, 9, 7, 3, 0, 6, True),  # odd C_in and W: the pad channel, scalar loads, stores
+    (1, 4, 9, 7, 4, 5, 40, False),  # pair 4 + 5
+    (1, 3, 40, 64, 8, 8, 24, False),  # pair 8 + 8: bands of 7 rows, passes of 32
+    (2, 2, 30, 64, NARROW_MAX - 6, 6, 72, False),  # C1 + C2 = NARROW_MAX: bands, 3 passes
+    (2, 2, 11, 24, NARROW_MAX - 1, 0, 40, True),  # odd, with the prologue, 2 passes
+    (1, 3, 96, 64, 4, 0, 128, False),  # G = 4's first conv: 3 bands x 2 passes
+])
+def test_conv3d_cs_narrow_kernel_matches_plain_version(dev, b, d, h, w, c1, c2, cout,
+                                                       affine):
+    """The narrow kernel: within one bf16 ULP at max(|value|, rms) (exact bf16
+    products summed in f32 in another order), stats rtol 1e-3 with atol
+    1e-3·max|Σ|, the same bits on a second launch; the gather kernel on the
+    same inputs within the same bound."""
+    g = torch.Generator().manual_seed(b * 1000 + h * 10 + w + c1 * 7 + c2 + cout)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    cin = c1 + c2
+    x = rnd(b, d, c1, h * w).to(torch.bfloat16)
+    wt = rnd(3, 3, 3, c1, cout, scale=0.2)
+    kw = dict(h=h, w=w, emit_stats=True)
+    if c2:
+        kw["pair"] = (rnd(b, d, c2, h * w).to(torch.bfloat16),
+                      rnd(3, 3, 3, c2, cout, scale=0.2), rnd(c2))
+    if affine:
+        kw["in_affine"] = (rnd(b, cin).abs() + 0.5, rnd(b, cin, scale=0.3))
+    bias = rnd(cout)
+    assert conv3d_cs_path(c1, c2, w, cout) == "narrow"
+    assert 1 <= narrow_band_rows(cin, h, w) <= h
+    before = conv3d_cs.launches, conv3d_cs_narrow.launches, conv3d_cs_gather.launches
+    got, st = conv3d_cs(x, wt, bias, **kw)
+    torch.cuda.synchronize()
+    assert (conv3d_cs.launches, conv3d_cs_narrow.launches, conv3d_cs_gather.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want, st_want = conv3d_cs_reference(x, wt, bias, **kw)
+    assert _ulps(got, want) <= 1.0
+    tol = dict(rtol=1e-3, atol=1e-3 * float(st_want.abs().max()))
+    torch.testing.assert_close(st, st_want, **tol)
+    again = conv3d_cs_narrow(x, wt, bias, **kw)
+    assert torch.equal(again[0], got) and torch.equal(again[1], st)
+    gathered, st_g = conv3d_cs_gather(x, wt, bias, **kw)
+    torch.cuda.synchronize()
+    assert conv3d_cs_gather.launches == before[2] + 1
+    assert _ulps(gathered, want) <= 1.0
+    torch.testing.assert_close(st_g, st_want, **tol)
+    regs, blocks = conv3d_cs_resources("narrow", h, w, cin)
+    assert 0 < regs <= 128 and blocks >= 2
+
+
+def test_conv3d_cs_narrow_block_diagonal_equals_per_window(dev):
+    """The packed first conv (models/packing.py, G = 2: C 2 → 64 with
+    block-diagonal weights) against each window alone with a zero second
+    channel (C 2 → 32): outputs and stats equal to the bit, whatever C_out
+    does to the split of a pass's channels between warps."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn((2, 4, 2, 24 * 64), generator=g).to(dev, torch.bfloat16)
+    w1 = (torch.randn((3, 3, 3, 1, 32), generator=g) * 0.2).to(dev)
+    wp = torch.zeros((3, 3, 3, 2, 64), device=dev)
+    wp[..., :1, :32] = w1
+    wp[..., 1:, 32:] = w1
+    got, st = conv3d_cs(x, wp, None, h=24, w=64, emit_stats=True)
+    for k in range(2):
+        xk = torch.zeros_like(x)
+        xk[:, :, 0] = x[:, :, k]
+        w_one = torch.cat([w1, torch.zeros_like(w1)], dim=3)
+        want, st_want = conv3d_cs(xk, w_one, None, h=24, w=64, emit_stats=True)
+        assert torch.equal(got[:, :, 32 * k:32 * k + 32], want)
+        assert torch.equal(st[..., 32 * k:32 * k + 32], st_want)
+
+
+def test_conv3d_cs_narrow_on_a_misaligned_view_and_without_stats(dev):
+    """A contiguous input that starts off a 16-byte boundary is staged one
+    voxel a load; without stats the output is the same; the wrapper raises
+    on a shape outside the narrow contract."""
+    base = torch.randn(1 + 2 * 3 * 2 * 6 * 16, device=dev).to(torch.bfloat16)
+    x = base[1:].reshape(2, 3, 2, 6 * 16)
+    wt = torch.randn((3, 3, 3, 2, 16), device=dev) * 0.2
+    got, st = conv3d_cs_narrow(x, wt, None, h=6, w=16, emit_stats=True)
+    want, st_want = conv3d_cs_reference(x, wt, None, h=6, w=16, emit_stats=True)
+    assert _ulps(got, want) <= 1.0
+    torch.testing.assert_close(
+        st, st_want, rtol=1e-3, atol=1e-3 * float(st_want.abs().max())
+    )
+    assert torch.equal(conv3d_cs_narrow(x, wt, None, h=6, w=16), got)
+    wide = torch.zeros(1, 2, NARROW_MAX + 1, 16, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="narrow conv"):
+        conv3d_cs_narrow(wide, torch.zeros(3, 3, 3, NARROW_MAX + 1, 8, device=dev), None,
+                         h=4, w=4)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
