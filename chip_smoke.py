@@ -60,13 +60,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
              Parity: packed within 2e-4 of per-window. Then the packed first
              conv against its plain version at its shape (a "kernel" row,
              "packed/conv_0.0", narrow path).
-4c. gather_path — the fast forward of a BasicUNet with features
-             GATHER_FEATURES (24, 24, 48, 96, 192, 24) on 4 windows: its 8
-             convs that take 24 channels in take the gather kernel by the
-             path rule (launches as the rule gives them, counts set to 0
-             just before, read just after), logits against its parity
-             forward with phase 4's bound; then a "kernel" row for each of
-             those 8 shapes.
+4c. padded_path — the fast forward of a BasicUNet with features
+             PADDED_FEATURES (24, 24, 48, 96, 192, 24) on 4 windows: its 8
+             convs that take 24 or 24 + 24 channels in take the pack and the
+             packed conv on channels padded to 16-slot K steps by the path
+             rule: 18 conv3d_cs, 17 packed, 17 packs (6 of them writing pad
+             slots: 24 + 24 fills 48), 1 direct, no gather (counts set to 0
+             just before, read just after); logits against
+             its parity forward with phase 4's bound; then for each of those
+             8 shapes a "kernel" row of the route (pack bit for bit, the
+             conv within one ULP, pack and conv device times apart, cuDNN,
+             plain, the unpadded work's bound) and one of the gather kernel
+             forced, and a "padded_path_sum" line over the 8.
+4d. wide_path — the full-width fast forward on 2 seeded windows of
+             WIDE_ROI (16, 16, 1024): its level-0 planes are too wide for
+             the packed conv's ring of stages, so conv_0.1, upcat_1.0 and
+             upcat_1.1 take the gather kernel by the path rule (launches as
+             the rule gives them, counts set to 0 just before, read just
+             after), logits against parity with phase 4's bound; then a
+             "kernel" row for each gather shape.
 5. stage1  — stage 1 (pipeline/stage01_downsample_mask.py::downsample_mask)
              on 192 uncompressed uint16 TIFF planes of the (192, 480, 384)
              volume of phase 6 at the default ratios (4, 15, 15): first
@@ -236,9 +248,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
              seconds a step.
 14. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
              conv3d_cs_direct, conv3d_cs_narrow with phase 4b's launches,
-             conv3d_cs_gather with phase 4c's, conv3d_cs_pack,
-             instance_norm_mish, deconv2x_cs), the nvidia-smi line, then the
-             result line.
+             conv3d_cs_gather with phase 4d's, conv3d_cs_pack,
+             instance_norm_mish, deconv2x_cs; conv3d_cs and conv3d_cs_pack
+             carry a "padded" field: phase 4c's launches on pad slots and
+             the sums over its 6 shapes with pad slots), the nvidia-smi
+             line, then the result line.
 
 Every time, rate and memory figure is printed beside the card's name and
 power limit (the "card" key).
@@ -274,8 +288,11 @@ PACK_G = 2  # windows packed into one UNet call in phase 4b (models/packing.py)
 PACK_WINDOWS = 16  # windows of phase 4b: 8 packed inputs
 # phase 4c's BasicUNet: 24 channels are neither narrow (C1 + C2 <= 16) nor a
 # multiple of 16, so the 8 convs that take them in (conv_0.1, down_1, down_2.0,
-# upcat_2, upcat_1) take the gather kernel
-GATHER_FEATURES = (24, 24, 48, 96, 192, 24)
+# upcat_2, upcat_1) take the packed conv on channels padded to 16-slot steps
+PADDED_FEATURES = (24, 24, 48, 96, 192, 24)
+# phase 4d: windows whose level-0 planes are too wide for the packed ring
+WIDE_ROI = (16, 16, 1024)
+WIDE_WINDOWS = 2
 ZARR_CHUNKS = (64, 128, 128)  # phase 10a's zarr v2 chunks of STREAM_VOLUME
 # stage 1's 8-bit stack of a (1300, 6000, 7000) raw brain at the default
 # ratios (4, 15, 15): ceil(1300 / 4) - 1, ceil(6000 / 15), ceil(7000 / 15)
@@ -417,22 +434,41 @@ def ulp_error(got, want):
 
 
 def pack_bytes(b, d, h, w, cin):
-    """Bytes the pack must move: the input read once, xp written once."""
+    """Bytes the pack must move: the input read once, xp written once, at
+    the real C_in (pad slots are not work the conv needs)."""
     return 2.0 * b * d * h * w * cin + 2.0 * b * (d + 2) * (h + 2) * (w + 2) * cin
 
 
+def padded_entry(launches, rows, ms, plain, bound, library):
+    """The "padded" field of a kernels-line entry: the launches on pad slots
+    of phase 4c's forward and the sums of the given keys over the rows of
+    its shapes with pad slots (c_slots > c_in)."""
+    rows = [r for r in rows if r["c_slots"] != r["c_in"]]
+    if len(rows) != launches:
+        raise AssertionError(f"{launches} launches on pad slots, {len(rows)} such shapes")
+    err = "max_abs_err" if ms == "kernel_ms" else "pack_max_abs_err"
+    return {"launches": launches, "shapes": len(rows),
+            "max_abs_err": max(r[err] for r in rows),
+            **{k: sum(r[key] for r in rows) for k, key in (
+                ("ms", ms), ("plain_ms", plain), ("bound_ms", bound),
+                ("library_ms", library))}}
+
+
 def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
-               affine=False, force=None, chunk=16):
+               affine=False, force=None, chunk=16, device_time=False):
     """One conv3d_cs case against the plain version (batch-chunked so the
     f32 reference fits beside the full-batch tensors); on the packed path
-    also the pack against its plain version, bit for bit. ``force``
-    ("gather" or "narrow") runs that kernel whatever the shape. Off the
-    packed path, "kernel_ms" and "library_ms" are device time (device_ms),
-    "wrapper_ms" the call's time with the host's. Returns a row."""
+    also the pack against its plain version (the padded slots), bit for
+    bit. ``force`` ("gather" or "narrow") runs that kernel whatever the
+    shape. Off the packed path, or with ``device_time`` (small calls, whose
+    host enqueueing outlasts the kernels), "kernel_ms", "pack_ms" and
+    "library_ms" are device time (device_ms); "wrapper_ms" is the call's
+    time with the host's. Returns a row."""
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
         block_weights, conv3d_cs, conv3d_cs_gather, conv3d_cs_narrow, conv3d_cs_pack,
         conv3d_cs_pack_reference, conv3d_cs_packed, conv3d_cs_path,
         conv3d_cs_reference, conv3d_cs_resources, kernel_weights, narrow_band_rows,
+        packed_channels,
     )
 
     dev = torch.device("cuda")
@@ -485,7 +521,7 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
             ev0.record()
             xp_want = conv3d_cs_pack_reference(
                 x[sl], h=h, w=w, x2=None if p is None else p[0],
-                bias2=None if p is None else p[2], in_affine=a)
+                bias2=None if p is None else p[2], in_affine=a, padded=True)
             ev1.record()
             torch.cuda.synchronize()
             pack_plain_ms += ev0.elapsed_time(ev1)
@@ -496,12 +532,14 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
     del got, st, out
     ms = timed_ms(lambda: conv(x, wt, None, **kw))
     pack_ms = None
-    kernel_ms = ms if path == "packed" else device_ms(lambda: conv(x, wt, None, **kw))
+    clock = device_ms if device_time or path != "packed" else timed_ms
+    kernel_ms = ms if path == "packed" else clock(lambda: conv(x, wt, None, **kw))
     if xp is not None:
-        w_blk = block_weights(kernel_weights(wt, None if pair is None else pair[1]))
-        pack_ms = timed_ms(lambda: conv3d_cs_pack(x, **pk))
-        kernel_ms = timed_ms(lambda: conv3d_cs_packed(xp, w_blk, None, cout=cout,
-                                                      emit_stats=emit_stats))
+        w_blk = block_weights(kernel_weights(wt, None if pair is None else pair[1],
+                                             padded=True))
+        pack_ms = clock(lambda: conv3d_cs_pack(x, **pk))
+        kernel_ms = clock(lambda: conv3d_cs_packed(xp, w_blk, None, cout=cout,
+                                                   emit_stats=emit_stats))
     del xp
 
     # yardsticks: one cuDNN bf16 conv of the same inputs, pre-laid-out NCDHW,
@@ -511,13 +549,12 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
     x5 = xin.reshape(b, d, cin, h, w).permute(0, 2, 1, 3, 4).contiguous()
     wcat = wt if pair is None else torch.cat([wt, pair[1]], dim=3)
     w5 = wcat.to(torch.bfloat16).permute(4, 3, 0, 1, 2).contiguous()
-    library_ms = (timed_ms if path == "packed" else device_ms)(
-        lambda: torch.nn.functional.conv3d(x5, w5, padding=1))
+    library_ms = clock(lambda: torch.nn.functional.conv3d(x5, w5, padding=1))
     del x5
     pack_library_ms = None
     if path == "packed":
         xcl = xin.view(b, d, cin, h, w).permute(0, 1, 3, 4, 2)
-        pack_library_ms = timed_ms(
+        pack_library_ms = clock(
             lambda: torch.nn.functional.pad(xcl, (0, 0, 1, 1, 1, 1, 1, 1)))
         del xcl
     del xin
@@ -525,9 +562,10 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
     flops = 2.0 * 27 * cin * cout * b * d * s
     regs, blocks_per_sm = conv3d_cs_resources(path, h, w, cin)
     sum_ms = kernel_ms + (pack_ms or 0.0)
+    slots = packed_channels(c1, c2) if path == "packed" else None
     row = dict(phase="kernel", card=card, case=name, path=path, b=b, d=d, h=h, w=w,
                band_rows=narrow_band_rows(cin, h, w) if path == "narrow" else None,
-               c_in=cin, c_out=cout, pair=bool(c2), emit_stats=emit_stats,
+               c_in=cin, c_slots=slots, c_out=cout, pair=bool(c2), emit_stats=emit_stats,
                in_affine=affine, max_ulps=ulps, max_abs_err=err,
                stats_tol_ratio=st_ratio, pack_equal=pack_equal,
                pack_max_abs_err=pack_err if path == "packed" else None,
@@ -1067,31 +1105,42 @@ def packing_phase(card, sd, dev):
     return counts, narrow_row
 
 
-def gather_phase(card, dev):
+def padded_phase(card, dev):
     """Phase 4c: the fast forward (apply_cs) of a BasicUNet with features
-    GATHER_FEATURES, random weights from the seed, on 4 bright windows of
+    PADDED_FEATURES, random weights from the seed, on 4 bright windows of
     the bench volume. Its 24-channel convs are neither narrow nor multiples
-    of 16, so the path rule sends them to the gather kernel. Launches
-    (counts set to 0 just before the forward, read just after) as the path
-    rule gives them for the 18 conv shapes; logits against the f32 parity
-    forward of the same weights with phase 4's bound; then a "kernel" row
-    for each gather shape. Returns the counts and those rows."""
+    of 16, so the path rule sends them to the packed conv on channels padded
+    to 16-slot K steps. Launches (counts set to 0 just before the forward,
+    read just after) as the path rule gives them for the 18 conv shapes: 17
+    packed with 17 packs, 1 direct, no gather; logits against the f32 parity
+    forward of the same weights with phase 4's bound; then for each of the
+    8 padded shapes a "kernel" row of its route (pack and packed conv apart,
+    device time) and one of the gather kernel forced, and a
+    "padded_path_sum" line over the 8. Returns the counts, the route's rows
+    and the gather rows."""
     from delivr_cfos_tpu_torch.engine.sliding_window import dense_patch_starts
     from delivr_cfos_tpu_torch.models.basic_unet import (
         BasicUNetConfig, build_model, init_state_dict,
     )
     from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_narrow, conv3d_cs_packed,
-        conv3d_cs_path,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_narrow, conv3d_cs_pack,
+        conv3d_cs_packed, conv3d_cs_path, packed_channels,
     )
 
-    cfg = BasicUNetConfig(features=GATHER_FEATURES)
+    cfg = BasicUNetConfig(features=PADDED_FEATURES)
     model = build_model(init_state_dict(cfg, torch.Generator().manual_seed(SEED)), cfg, dev)
-    paths = [conv3d_cs_path(c1, c2, w, co)
-             for _, _, c1, c2, co, _, _, w in conv_shapes(GATHER_FEATURES, ROI)]
-    want = dict(conv3d_cs=18, **{k: paths.count(k) for k in ("packed", "direct", "narrow",
-                                                              "gather")})
+    shapes = conv_shapes(PADDED_FEATURES, ROI)
+    paths = [conv3d_cs_path(c1, c2, w, co) for _, _, c1, c2, co, _, _, w in shapes]
+    n_padded = sum(p == "packed" and packed_channels(c1, c2) != c1 + c2
+                   for p, (_, _, c1, c2, _, _, _, _) in zip(paths, shapes))
+    want = dict(conv3d_cs=18, pack=paths.count("packed"), padded=n_padded,
+                **{k: paths.count(k) for k in ("packed", "direct", "narrow", "gather")})
+    # 8 shapes leave the gather kernel; 6 of them write pad slots (24 + 24
+    # fills 48 slots)
+    if want != dict(conv3d_cs=18, pack=PACKED, padded=6, packed=PACKED, direct=1, narrow=0,
+                    gather=0):
+        raise AssertionError(f"the path rule sends the padded model's convs to {paths}")
     vol = make_volume()
     bright = [s for s in dense_patch_starts(VOLUME, ROI, 0.5)
               if vol[s[0]:s[0] + ROI[0], s[1]:s[1] + ROI[1], s[2]:s[2] + ROI[2]].max() > 0]
@@ -1101,29 +1150,100 @@ def gather_phase(card, dev):
     xw = torch.from_numpy(wins.astype(np.float32))[..., None].to(dev)
     with torch.no_grad():
         conv3d_cs.launches = conv3d_cs_packed.launches = conv3d_cs_direct.launches = 0
-        conv3d_cs_narrow.launches = conv3d_cs_gather.launches = 0
+        conv3d_cs_narrow.launches = conv3d_cs_gather.launches = conv3d_cs_pack.launches = 0
+        conv3d_cs_pack.padded_launches = 0
         fast = apply_cs(model, xw).float()
         torch.cuda.synchronize()
-        counts = dict(conv3d_cs=conv3d_cs.launches, packed=conv3d_cs_packed.launches,
-                      direct=conv3d_cs_direct.launches, narrow=conv3d_cs_narrow.launches,
-                      gather=conv3d_cs_gather.launches)
+        counts = dict(conv3d_cs=conv3d_cs.launches, pack=conv3d_cs_pack.launches,
+                      padded=conv3d_cs_pack.padded_launches,
+                      packed=conv3d_cs_packed.launches, direct=conv3d_cs_direct.launches,
+                      narrow=conv3d_cs_narrow.launches, gather=conv3d_cs_gather.launches)
         parity = model(xw)
     dev_max = float((fast - parity).abs().max())
     scale = float(parity.abs().mean()) + 1e-3
-    row = dict(phase="gather_path", card=card, features=list(GATHER_FEATURES),
+    row = dict(phase="padded_path", card=card, features=list(PADDED_FEATURES),
                windows=int(xw.shape[0]), paths=paths, launches=counts,
                max_abs_dev=dev_max, parity_mean_abs=scale - 1e-3, rel_dev=dev_max / scale,
                finite=bool(torch.isfinite(fast).all()))
     emit(row)
-    if counts != want or not counts["gather"]:
-        raise AssertionError(f"the gather-path forward launched {counts}, not {want}")
+    if counts != want:
+        raise AssertionError(f"the padded-path forward launched {counts}, not {want}")
     if not row["finite"] or dev_max / scale >= 0.5:
-        raise AssertionError(f"the gather-path fast forward strays from parity: {row}")
+        raise AssertionError(f"the padded-path fast forward strays from parity: {row}")
     del model, xw, fast, parity
-    # the gather kernel against its plain version at the shapes it took
-    rows = [check_conv(card, f"gather_path/{n}", int(wins.shape[0]), d, h, w, c1, c2, co)
-            for (n, _, c1, c2, co, d, h, w), path
-            in zip(conv_shapes(GATHER_FEATURES, ROI), paths) if path == "gather"]
+    # the route against its plain version at the shapes whose channels it
+    # pads, each beside the gather kernel that took them before
+    b = int(wins.shape[0])
+    padded = [(n, c1, c2, co, d, h, w) for n, _, c1, c2, co, d, h, w in shapes
+              if conv3d_cs_path(c1, c2, w, co) == "packed" and (c1 % 16 or c2 % 16)]
+    rows = [check_conv(card, f"padded_path/{n}", b, d, h, w, c1, c2, co, device_time=True)
+            for n, c1, c2, co, d, h, w in padded]
+    gather_rows = [check_conv(card, f"padded_path/{n}/gather", b, d, h, w, c1, c2, co,
+                              force="gather")
+                   for n, c1, c2, co, d, h, w in padded]
+    ms = sum(r["ms"] for r in rows)
+    bound = sum(r["bound_ms"] for r in rows)
+    emit(dict(phase="padded_path_sum", card=card, shapes=len(rows),
+              pack_ms=sum(r["pack_ms"] for r in rows),
+              kernel_ms=sum(r["kernel_ms"] for r in rows), ms=ms,
+              gather_ms=sum(r["kernel_ms"] for r in gather_rows),
+              library_ms=sum(r["library_ms"] for r in rows),
+              plain_ms=sum(r["plain_ms"] for r in rows),
+              bound_ms=bound, fraction_of_bound=bound / ms,
+              below_library=ms < sum(r["library_ms"] for r in rows)))
+    return counts, rows, gather_rows
+
+
+def wide_phase(card, sd, dev):
+    """Phase 4d: the full-width fast forward on WIDE_WINDOWS seeded windows
+    of WIDE_ROI, whose level-0 planes (1024 wide) are too wide for the
+    packed conv's ring: the path rule sends its three level-0 convs with 32
+    or 64 channels in to the gather kernel, the first conv to the direct one
+    and the rest to the packed conv. Launches as the rule gives them (counts
+    set to 0 just before the forward, read just after), logits against the
+    f32 parity forward with phase 4's bound; then a "kernel" row for each
+    gather shape. Returns the counts and those rows."""
+    from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig, build_model
+    from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import (
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_narrow, conv3d_cs_pack,
+        conv3d_cs_packed, conv3d_cs_path,
+    )
+
+    cfg = BasicUNetConfig()
+    model = build_model(sd, cfg, dev)
+    shapes = conv_shapes(cfg.features, WIDE_ROI)
+    paths = [conv3d_cs_path(c1, c2, w, co) for _, _, c1, c2, co, _, _, w in shapes]
+    want = dict(conv3d_cs=18, pack=paths.count("packed"),
+                **{k: paths.count(k) for k in ("packed", "direct", "narrow", "gather")})
+    if not want["gather"]:
+        raise AssertionError(f"no conv of the wide window takes the gather kernel: {paths}")
+    rng = np.random.default_rng(SEED)
+    xw = torch.from_numpy((rng.random((WIDE_WINDOWS, *WIDE_ROI, 1)) * 1000).astype(
+        np.float32)).to(dev)
+    with torch.no_grad():
+        conv3d_cs.launches = conv3d_cs_packed.launches = conv3d_cs_direct.launches = 0
+        conv3d_cs_narrow.launches = conv3d_cs_gather.launches = conv3d_cs_pack.launches = 0
+        fast = apply_cs(model, xw).float()
+        torch.cuda.synchronize()
+        counts = dict(conv3d_cs=conv3d_cs.launches, pack=conv3d_cs_pack.launches,
+                      packed=conv3d_cs_packed.launches, direct=conv3d_cs_direct.launches,
+                      narrow=conv3d_cs_narrow.launches, gather=conv3d_cs_gather.launches)
+        parity = model(xw)
+    dev_max = float((fast - parity).abs().max())
+    scale = float(parity.abs().mean()) + 1e-3
+    row = dict(phase="wide_path", card=card, roi=list(WIDE_ROI), windows=WIDE_WINDOWS,
+               paths=paths, launches=counts, max_abs_dev=dev_max,
+               parity_mean_abs=scale - 1e-3, rel_dev=dev_max / scale,
+               finite=bool(torch.isfinite(fast).all()))
+    emit(row)
+    if counts != want:
+        raise AssertionError(f"the wide-window forward launched {counts}, not {want}")
+    if not row["finite"] or dev_max / scale >= 0.5:
+        raise AssertionError(f"the wide-window fast forward strays from parity: {row}")
+    del model, xw, fast, parity
+    rows = [check_conv(card, f"wide_path/{n}", WIDE_WINDOWS, d, h, w, c1, c2, co)
+            for (n, _, c1, c2, co, d, h, w), path in zip(shapes, paths) if path == "gather"]
     return counts, rows
 
 
@@ -2859,8 +2979,12 @@ def main() -> int:
     narrow_counts, narrow_row = packing_phase(smi, sd, dev)
     torch.cuda.empty_cache()
 
-    # --- 4c. a model whose 24-channel convs take the gather kernel ----------
-    gather_counts, gather_rows = gather_phase(smi, dev)
+    # --- 4c. a model whose 24-channel convs take padded slots ---------------
+    padded_counts, padded_rows, padded_gather_rows = padded_phase(smi, dev)
+    torch.cuda.empty_cache()
+
+    # --- 4d. windows too wide for the packed ring: the gather kernel --------
+    wide_counts, wide_rows = wide_phase(smi, sd, dev)
     torch.cuda.empty_cache()
 
     # --- 5. stage 1, and stage 2 on its output ------------------------------
@@ -2875,9 +2999,10 @@ def main() -> int:
         write_brain(tmp, vol)
         conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
         conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_gather.launches = 0
+        conv3d_cs_pack.padded_launches = 0
         sec_fast, peak_fast, bin_fast, sig_fast = stage2(tmp, "fast", sd)
         launches, deconv_launches = conv3d_cs.launches, deconv2x_cs.launches
-        pack_launches = conv3d_cs_pack.launches
+        pack_launches, pack_padded = conv3d_cs_pack.launches, conv3d_cs_pack.padded_launches
         packed_launches, direct_launches = conv3d_cs_packed.launches, conv3d_cs_direct.launches
         gather_launches = conv3d_cs_gather.launches
         sec_fast_warm, _, _, _ = stage2(tmp, "fast_warm", sd)
@@ -2910,6 +3035,7 @@ def main() -> int:
               conv3d_cs_direct_launches=direct_launches,
               conv3d_cs_gather_launches=gather_launches,
               conv3d_cs_pack_launches=pack_launches,
+              conv3d_cs_pack_padded_launches=pack_padded,
               deconv2x_cs_launches=deconv_launches,
               seconds_fast=sec_fast, seconds_fast_warm=sec_fast_warm,
               gvox_per_s_fast=n_vox / sec_fast_warm / 1e9,
@@ -3082,6 +3208,10 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in prow),
         "bound_by": "operations" if by_ops * 2 >= sum(r["bound_ms"] for r in prow) else "bytes",
         "library_ms": sum(r["library_ms"] for r in prow),
+        # phase 4c's forward: its packed convs on pad slots (each after one
+        # pack that wrote them), the conv kernel alone over those shapes
+        "padded": padded_entry(padded_counts["padded"], padded_rows, "kernel_ms",
+                               "plain_ms", "bound_ms", "library_ms"),
     }, {
         "name": "conv3d_cs_direct",
         "route": "cuda",
@@ -3114,17 +3244,18 @@ def main() -> int:
         "name": "conv3d_cs_gather",
         "route": "cuda",
         "source": "delivr_cfos_tpu_torch/csrc/conv3d_cs.cu",
-        # the TPU kernel at the wider C_in that are not multiples of 16
+        # the TPU kernel on planes too wide for the packed ring
         "replaces": "delivr_cfos_tpu/ops/pallas/conv3d_cs.py:374",
-        # phase 4c's forward: the sum over its 8 gather shapes
-        "launches": gather_counts["gather"],
-        "max_abs_err": max(r["max_abs_err"] for r in gather_rows + narrow_rows[:1]),
-        "ms": sum(r["kernel_ms"] for r in gather_rows),
-        "plain_ms": sum(r["plain_ms"] for r in gather_rows),
-        "bound_ms": sum(r["bound_ms"] for r in gather_rows),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in gather_rows)
+        # phase 4d's forward: the sum over its gather shapes
+        "launches": wide_counts["gather"],
+        "max_abs_err": max(r["max_abs_err"] for r in wide_rows + padded_gather_rows
+                           + narrow_rows[:1]),
+        "ms": sum(r["kernel_ms"] for r in wide_rows),
+        "plain_ms": sum(r["plain_ms"] for r in wide_rows),
+        "bound_ms": sum(r["bound_ms"] for r in wide_rows),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in wide_rows)
         else "operations",
-        "library_ms": sum(r["library_ms"] for r in gather_rows),
+        "library_ms": sum(r["library_ms"] for r in wide_rows),
     }, {
         "name": "conv3d_cs_pack",
         "route": "cuda",
@@ -3140,6 +3271,10 @@ def main() -> int:
         "bound_ms": sum(r["pack_bound_ms"] for r in rows if r["path"] == "packed"),
         "bound_by": "bytes",
         "library_ms": sum(r["pack_library_ms"] for r in rows if r["path"] == "packed"),
+        # phase 4c's forward: its packs that wrote pad slots, over those
+        # shapes (the bound at the real C_in)
+        "padded": padded_entry(padded_counts["padded"], padded_rows, "pack_ms",
+                               "pack_plain_ms", "pack_bound_ms", "pack_library_ms"),
     }, {
         "name": "instance_norm_mish",
         "route": "cuda",

@@ -22,15 +22,24 @@
 // The kernels:
 //
 // - conv3d_cs_pack_kernel (bound by bytes): writes the conv's input once as
-//   xp (B, D + 2, H + 2, W + 2, C_in) bf16, zero-padded on the three spatial
+//   xp (B, D + 2, H + 2, W + 2, Cp) bf16, zero-padded on the three spatial
 //   axes, channels innermost, with the pair concat, the pair bias and the
-//   affine prologue applied. A thread reads 8 channels x 8 voxels with 16-byte
-//   loads along x (8 channels x 1 voxel where H*W % 8 != 0), transposes them
-//   in registers and writes each voxel's 8 channels as one 16-byte store; the
-//   halo zeros are 16-byte stores of the same kernel.
-// - conv3d_cs_packed_kernel (C_in a multiple of 16: every production layer
-//   but the C_in = 1 first conv): an implicit GEMM, M = output voxels of one
-//   z-plane, N = C_out, K = 27 * C_in, on xp. With the padded plane flattened
+//   affine prologue applied. Cp pads the channels to the packed conv's K
+//   step: C1 and C2 each to a multiple of 8 (C1p, C2p), their sum to a
+//   multiple of 16; slots [0, C1) hold x, [C1p, C1p + C2) hold
+//   bf16(x2 + bf16(bias2)), every other slot an exact zero (the prologue
+//   touches real channels only). Where C1 and C2 are multiples of 16 (every
+//   production layer) Cp = C1 + C2 and the kernel's unpadded instance runs,
+//   slot s channel s (the slot map cost 3 % there). A thread reads 8 channel
+//   slots x 8 voxels with 16-byte loads along x (8 x 1 voxel where H*W % 8
+//   != 0), zeros for pad slots, transposes them in registers and writes each
+//   voxel's 8 slots as one 16-byte store; the halo zeros are 16-byte stores
+//   of the same kernel.
+// - conv3d_cs_packed_kernel (every C_in but the narrow ones, padded to Cp by
+//   the pack: every production layer but the C_in = 1 first conv, and the
+//   wider C_in that are not multiples of 16): an implicit GEMM, M = output
+//   voxels of one z-plane, N = C_out, K = 27 * Cp, on xp, the weights with
+//   zero rows at the pad slots. With the padded plane flattened
 //   to v = r * (W + 2) + c, tap (dz, dy, dx) of tile row v reads voxel
 //   v + dy * (W + 2) + dx of padded plane d + dz: one stage, (dz, 16 input
 //   channels), is one span of TM + 2 (W + 2) + 2 voxels, a strided block of
@@ -113,10 +122,25 @@
 //   warp pairs (slower at C_out = 32). wgmma and TMA are not used: at 52
 //   operations a byte the tensor cores are not the limit, and padding C to
 //   16 for the packed kernel would do 8x the multiply-adds at C = 2.
-// - conv3d_cs_gather_kernel (what is left: C_in above 16 and not a multiple
-//   of 16): per chunk of 32 K columns, which cross tap boundaries so K = 27 *
-//   C_in is not padded, the block gathers the im2col tile straight from
-//   global memory and runs nvcuda::wmma.
+//   Padded channels (C_in above 16 and not a multiple of 16; on the TPU the
+//   same kernel at even C_in, odd C_in padded to even by the JAX model,
+//   models/basic_unet_cs.py:44-58): the tensor cores' K depth is 16 channels,
+//   so the pack pads to it as the JAX package pads to the TPU's bf16 pairs.
+//   At 24 channels (level 0 of a (24, 24, 48, 96, 192, 24) model) the work is
+//   bound by operations: 2 * 27 * 24 * 24 / (2 * (24 + 24)) = 324 operations
+//   a byte against the card's 295. The padding costs 32 / 24 = 1.33x the
+//   multiply-adds on K there (and 1.33x on N, C_out 24 in a 32-wide tile:
+//   unchanged from the unpadded kernel), 15 / 17 more at worst (C_in = 17
+//   padded to 32), none at 24 + 24 (48 slots); the pack writes Cp / C_in
+//   times the bytes. Against that, each (dz, 16-slot) span is one strided
+//   16-byte copy serving all 9 (dy, dx) taps, where gathering the im2col tile
+//   element by element ran at 0.005 of the bound.
+// - conv3d_cs_gather_kernel (what is left: planes too wide for the packed
+//   ring, W > 556 at 256-row tiles, whose 3 stages would pass the 232,448
+//   bytes of shared memory a block may opt into): per chunk of 32 K columns,
+//   which cross tap boundaries so K = 27 * C_in is not padded, the block
+//   gathers the im2col tile straight from global memory and runs
+//   nvcuda::wmma.
 //
 // The packed, direct and gather kernels run one block per (C_out tile of 32,
 // z-plane d, batch b), the narrow kernel one block per (d, b) for all of
@@ -126,10 +150,12 @@
 // do not).
 //
 // Left for later: wgmma and TMA on xp, multi-plane tiles for the small planes
-// of levels 3-4, wider N tiles; for the narrow kernel, more warps in flight
-// (its 113 registers allow 2 blocks of 256 threads an SM) and an epilogue of
-// fewer instructions; a redesign of the gather kernel, which no shape of the
-// repository's models reaches at C_in <= 16 any more.
+// of levels 3-4, wider N tiles (and, for the padded shapes, an N tile of 24
+// or 48 channels and more blocks at a few windows); for the narrow kernel,
+// more warps in flight (its 113 registers allow 2 blocks of 256 threads an
+// SM) and an epilogue of fewer instructions; a redesign of the gather kernel
+// for planes wider than the packed ring (a ring of row bands), which no
+// model of the repository reaches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -184,6 +210,7 @@ struct Args {
   __nv_bfloat16* out;
   float* stats;
   int B, D, C1, C2, Cout, H, W;
+  int Cp;  // the pack's channel slots (packed_channels(C1, C2))
 };
 
 using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
@@ -222,15 +249,33 @@ __device__ __forceinline__ const __nv_bfloat16* channel_ptr(const Args& p,
   return p.x2 + (((size_t)b * p.D + z) * p.C2 + (ci - p.C1)) * S;
 }
 
-// ---------------------------------------------------------------------------
-// pack: (B, D, C, H*W) -> xp (B, D + 2, H + 2, W + 2, C_in)
+// The channel slots of xp: C1 and C2 each padded to a multiple of 8, their
+// sum to a multiple of 16 (the packed conv's K step).
+__host__ __device__ constexpr int pad8(int c) { return (c + 7) / 8 * 8; }
+__host__ __device__ constexpr int packed_channels(int c1, int c2) {
+  return (pad8(c1) + pad8(c2) + PCC - 1) / PCC * PCC;
+}
 
-// Unit u of the interior: 8 channels (group g) x VEC consecutive voxels of
-// one plane. Loads along x, transposes in registers, 16-byte stores.
-template <int VEC>
+// The concat channel that slot s of xp holds, or -1 for a pad slot: slots
+// [0, C1) hold x, slots [C1p, C1p + C2) channels C1 .. C1 + C2 - 1 (x2).
+__device__ __forceinline__ int slot_channel(const Args& p, int s) {
+  const int c1p = pad8(p.C1);
+  if (s < c1p) return s < p.C1 ? s : -1;
+  return s - c1p < p.C2 ? p.C1 + s - c1p : -1;
+}
+
+// ---------------------------------------------------------------------------
+// pack: (B, D, C, H*W) -> xp (B, D + 2, H + 2, W + 2, Cp)
+
+// Unit u of the interior: the 8 channel slots of group g x VEC consecutive
+// voxels of one plane. Loads along x, transposes in registers, 16-byte
+// stores. PAD: slot s holds concat channel slot_channel(s), a pad slot an
+// exact zero, the prologue not applied. Without PAD slot s is channel s:
+// the slot map in that loop cost 3 % of the pack's time at the production
+// shapes, where Cp = C1 + C2, on an H100 (chip_smoke.py's pack rows).
+template <int VEC, bool PAD>
 __device__ __forceinline__ void pack_interior(const Args& p, long long u) {
-  const int cin = p.C1 + p.C2;
-  const int G = cin / 8;
+  const int G = p.Cp / 8;
   const int S = p.H * p.W;
   const int NV = S / VEC;
   const int g = (int)(u % G);
@@ -242,7 +287,13 @@ __device__ __forceinline__ void pack_interior(const Args& p, long long u) {
   __nv_bfloat16 v[8][VEC];
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
-    const __nv_bfloat16* src = channel_ptr(p, b, z, 8 * g + e) + (size_t)j * VEC;
+    const int ci = PAD ? slot_channel(p, 8 * g + e) : 8 * g + e;
+    if (PAD && ci < 0) {
+#pragma unroll
+      for (int t = 0; t < VEC; ++t) v[e][t] = __float2bfloat16(0.f);
+      continue;
+    }
+    const __nv_bfloat16* src = channel_ptr(p, b, z, ci) + (size_t)j * VEC;
     if constexpr (VEC == 8) {
       const uint4 q = *reinterpret_cast<const uint4*>(src);
       const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&q);
@@ -252,7 +303,7 @@ __device__ __forceinline__ void pack_interior(const Args& p, long long u) {
       v[e][0] = *src;
     }
 #pragma unroll
-    for (int t = 0; t < VEC; ++t) v[e][t] = prologue(p, b, 8 * g + e, v[e][t]);
+    for (int t = 0; t < VEC; ++t) v[e][t] = prologue(p, b, ci, v[e][t]);
   }
   const size_t plane = (size_t)b * (p.D + 2) + z + 1;
 #pragma unroll
@@ -267,17 +318,16 @@ __device__ __forceinline__ void pack_interior(const Args& p, long long u) {
               ((uint32_t)__bfloat16_as_ushort(v[2 * e + 1][t]) << 16);
     }
     const size_t vox = (plane * (p.H + 2) + y + 1) * (p.W + 2) + x + 1;
-    *reinterpret_cast<uint4*>(p.out + vox * cin + 8 * g) =
+    *reinterpret_cast<uint4*>(p.out + vox * p.Cp + 8 * g) =
         make_uint4(w4[0], w4[1], w4[2], w4[3]);
   }
 }
 
-// Unit u of the halo: 8 zero channels of one halo voxel. Per batch the halo
-// is the two padded planes z' = 0 and D + 1, then for each interior plane
-// its rows y' = 0 and H + 1 and its columns x' = 0 and W + 1.
+// Unit u of the halo: 8 zero channel slots of one halo voxel. Per batch the
+// halo is the two padded planes z' = 0 and D + 1, then for each interior
+// plane its rows y' = 0 and H + 1 and its columns x' = 0 and W + 1.
 __device__ __forceinline__ void pack_halo(const Args& p, long long u) {
-  const int cin = p.C1 + p.C2;
-  const int G = cin / 8;
+  const int G = p.Cp / 8;
   const int WP = p.W + 2;
   const int P = (p.H + 2) * WP;
   const int R = 2 * WP + 2 * p.H;
@@ -305,17 +355,17 @@ __device__ __forceinline__ void pack_halo(const Args& p, long long u) {
     }
   }
   const size_t vox = (((size_t)b * (p.D + 2) + zp) * (p.H + 2) + yp) * WP + xp;
-  *reinterpret_cast<uint4*>(p.out + vox * cin + 8 * g) = make_uint4(0u, 0u, 0u, 0u);
+  *reinterpret_cast<uint4*>(p.out + vox * p.Cp + 8 * g) = make_uint4(0u, 0u, 0u, 0u);
 }
 
-template <int VEC>
+template <int VEC, bool PAD>
 __global__ void __launch_bounds__(PACK_THREADS) conv3d_cs_pack_kernel(
     Args p, long long n_interior, long long n_total) {
   const long long stride = (long long)gridDim.x * PACK_THREADS;
   for (long long u = (long long)blockIdx.x * PACK_THREADS + threadIdx.x;
        u < n_total; u += stride) {
     if (u < n_interior) {
-      pack_interior<VEC>(p, u);
+      pack_interior<VEC, PAD>(p, u);
     } else {
       pack_halo(p, u - n_interior);
     }
@@ -1231,16 +1281,22 @@ Args make_args(const void* x1, const void* x2, const void* pair_bias,
 
 // Every launcher runs on `stream` and returns cudaGetLastError() (0 = launched).
 
-// xp (B, D + 2, H + 2, W + 2, C1 + C2) from x1, x2, the pair bias and the
-// affine prologue; C1 and C2 multiples of 8. 16-byte loads along x when H*W
-// is a multiple of 8 and x1, x2 are 16-byte aligned, else one voxel a load.
+// xp (B, D + 2, H + 2, W + 2, packed_channels(C1, C2)) from x1, x2, the pair
+// bias and the affine prologue: slots [0, C1) hold x1, slots [C1p, C1p + C2)
+// x2 (C1p = C1 padded to a multiple of 8), the other slots zeros; where C1
+// and C2 are multiples of 8 and C1 + C2 of 16 every slot is a channel. 16-byte
+// loads along x when H*W is a multiple of 8 and x1, x2 are 16-byte aligned,
+// else one voxel a load.
 extern "C" int conv3d_cs_pack_launch(const void* x1, const void* x2,
                                      const void* pair_bias, const void* aff_a,
                                      const void* aff_c, void* xp, int B, int D,
                                      int C1, int C2, int H, int W, void* stream) {
+  if (C1 < 1 || C2 < 0) return static_cast<int>(cudaErrorInvalidValue);
   Args p = make_args(x1, x2, pair_bias, aff_a, aff_c, B, D, C1, C2, H, W);
   p.out = static_cast<__nv_bfloat16*>(xp);
-  const int G = (C1 + C2) / 8;
+  p.Cp = packed_channels(C1, C2);
+  const bool pad = p.Cp != C1 + C2;
+  const int G = p.Cp / 8;
   const int S = H * W;
   const long long P = (long long)(H + 2) * (W + 2);
   const long long n_halo = (long long)B * (2 * P + (long long)D * (2 * (W + 2) + 2 * H)) * G;
@@ -1252,17 +1308,22 @@ extern "C" int conv3d_cs_pack_launch(const void* x1, const void* x2,
   const int blocks = (int)(want < 132LL * 64 ? want : 132LL * 64);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (blocks == 0) return 0;
-  if (vec) {
-    conv3d_cs_pack_kernel<8><<<blocks, PACK_THREADS, 0, s>>>(p, n_int, n_total);
+  if (vec && pad) {
+    conv3d_cs_pack_kernel<8, true><<<blocks, PACK_THREADS, 0, s>>>(p, n_int, n_total);
+  } else if (vec) {
+    conv3d_cs_pack_kernel<8, false><<<blocks, PACK_THREADS, 0, s>>>(p, n_int, n_total);
+  } else if (pad) {
+    conv3d_cs_pack_kernel<1, true><<<blocks, PACK_THREADS, 0, s>>>(p, n_int, n_total);
   } else {
-    conv3d_cs_pack_kernel<1><<<blocks, PACK_THREADS, 0, s>>>(p, n_int, n_total);
+    conv3d_cs_pack_kernel<1, false><<<blocks, PACK_THREADS, 0, s>>>(p, n_int, n_total);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The packed conv: xp from conv3d_cs_pack_launch with a tail of at least tm
-// voxels of storage past its end, Cin a multiple of 16, w in the per-block
-// layout (ceil(Cout / 32), 27 * Cin, 32) bf16; tm is 256 or 128.
+// voxels of storage past its end, Cin its channel slots (a multiple of 16), w
+// in the per-block layout (ceil(Cout / 32), 27 * Cin, 32) bf16 with zero rows
+// at the pad slots; tm is 256 or 128.
 extern "C" int conv3d_cs_packed_launch(const void* xp, const void* w,
                                        const void* bias, void* out, void* stats,
                                        int B, int D, int Cin, int Cout, int H,

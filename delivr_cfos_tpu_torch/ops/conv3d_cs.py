@@ -12,16 +12,17 @@ concat([x, bf16(x2 + bf16(bias2))]); ``in_affine=(a, c)`` applies
 bf16(mish(x·a + c)) to the input. Odd C_in is taken as is.
 
 Four paths on the card, by a fixed shape rule (``conv3d_cs_path``):
-``packed`` where C1 and C2 are multiples of 16 — ``conv3d_cs_pack`` writes
-the conv's input once as xp (B, D+2, H+2, W+2, C_in), zero-padded, channels
-innermost, with the concat, pair bias and prologue applied, and the packed
-conv kernel reads it with 16-byte copies; ``direct`` for C_in = 1 with W
-and C_out multiples of 8 (the first conv), a stencil of f32 FMAs on input
-planes staged in shared memory; ``narrow`` for C1 + C2 ≤ ``NARROW_MAX``
-(the packed first conv, narrow models), tensor-core MMAs on input planes
-staged in shared memory once per band, channels innermost, with resident
-weights; and ``gather`` for the rest (wider channel counts that are not
-multiples of 16), which gathers its im2col tiles from (B, D, C, H·W)
+``packed`` — ``conv3d_cs_pack`` writes the conv's input once as xp (B, D+2,
+H+2, W+2, Cp), zero-padded, channels innermost, with the concat, pair bias
+and prologue applied and the channels padded with zeros to the packed
+conv's K step of 16 (``packed_channels``), and the packed conv kernel reads
+it with 16-byte copies; ``direct`` for C_in = 1 with W and C_out multiples
+of 8 (the first conv), a stencil of f32 FMAs on input planes staged in
+shared memory; ``narrow`` for C1 + C2 ≤ ``NARROW_MAX`` (the packed first
+conv, narrow models), tensor-core MMAs on input planes staged in shared
+memory once per band, channels innermost, with resident weights; and
+``gather`` for planes too wide for the packed conv's ring of stages
+(``packed_smem_bytes``), which gathers its im2col tiles from (B, D, C, H·W)
 itself.
 """
 
@@ -45,6 +46,8 @@ NARROW_PASS = 32  # output channels a narrow block computes per pass over its st
 # the narrow kernel's fixed shared memory besides weights and input: 8 warps'
 # epilogue tiles (32 channels × 40 bf16) and stats partials (2 × 32 f32)
 _NARROW_FIXED = 8 * 32 * 40 * 2 + 8 * 2 * 32 * 4
+PACKED_K = 16  # channel slots a K step of the packed conv (the kernel's PCC)
+SMEM_OPTIN = 232_448  # shared memory an H100 block may opt into
 
 
 def _mish(v: torch.Tensor) -> torch.Tensor:
@@ -60,14 +63,38 @@ def _split_pair(pair):
 
 def conv3d_cs_path(c1: int, c2: int, w: int, cout: int) -> str:
     """The kernel path a CUDA call with C1 and C2 input channels, planes W
-    wide and C_out output channels takes."""
-    if c1 % 16 == 0 and c2 % 16 == 0:
+    wide and C_out output channels takes: packed without padding where C1
+    and C2 are multiples of 16, then direct, then narrow, then packed with
+    the channels padded to ``packed_channels``; gather only where the
+    packed conv's ring of stages does not fit a block's shared memory."""
+    packs = packed_smem_bytes(256, w) <= SMEM_OPTIN
+    if c1 % 16 == 0 and c2 % 16 == 0 and packs:
         return "packed"
     if c1 == 1 and c2 == 0 and w % 8 == 0 and w <= DIRECT_MAX_W and cout % 8 == 0:
         return "direct"
     if _narrow_takes(c1 + c2, w):
         return "narrow"
-    return "gather"
+    return "packed" if packs else "gather"
+
+
+def _pad8(c: int) -> int:
+    return -(-c // 8) * 8
+
+
+def packed_channels(c1: int, c2: int) -> int:
+    """Channel slots of the pack's xp (the kernel's packed_channels): C1 and
+    C2 each padded to a multiple of 8, their sum to a multiple of
+    ``PACKED_K``. Slots [0, C1) hold x, [C1p, C1p + C2) x2, the rest zeros."""
+    return -(-(_pad8(c1) + _pad8(c2)) // PACKED_K) * PACKED_K
+
+
+def packed_smem_bytes(tm: int, w: int) -> int:
+    """Shared memory of a packed-conv block with ``tm``-row tiles on planes W
+    wide (the kernel's STAGES · packed_stage_elems · 2): 3 stages, each a
+    span of tm + 2(W + 2) + 2 voxels at 24 bf16 a voxel and 9 × 16 weight
+    rows of 40 bf16. The path rule asks at 256 rows, the tiles of every
+    plane wider than 126 columns (``packed_tile_rows``)."""
+    return 3 * ((tm + 2 * (w + 2) + 2) * (PACKED_K + 8) + 9 * PACKED_K * (TN + 8)) * 2
 
 
 def narrow_k(cin: int) -> int:
@@ -121,11 +148,15 @@ def packed_tile_rows(h: int, w: int) -> int:
     return 256 if h * (w + 2) > 128 else 128
 
 
-def conv3d_cs_pack_reference(x, *, h, w, x2=None, bias2=None, in_affine=None):
+def conv3d_cs_pack_reference(x, *, h, w, x2=None, bias2=None, in_affine=None,
+                             padded=False):
     """Plain PyTorch version of ``conv3d_cs_pack``: (B, D+2, H+2, W+2,
     C1+C2) bf16 with zeros around, channel ci of x, or of bf16(x2 +
-    bf16(bias2)) for ci ≥ C1, then bf16(mish(v·a + c)) with ``in_affine``."""
+    bf16(bias2)) for ci ≥ C1, then bf16(mish(v·a + c)) with ``in_affine``.
+    ``padded``: the kernel's layout, ``packed_channels(C1, C2)`` slots,
+    x in [0, C1), x2 in [C1p, C1p + C2) and exact zeros elsewhere."""
     xf = x.to(torch.bfloat16).float()
+    c1 = xf.shape[2]
     if x2 is not None:
         x2f = x2.to(torch.bfloat16).float()
         if bias2 is not None:
@@ -137,32 +168,29 @@ def conv3d_cs_pack_reference(x, *, h, w, x2=None, bias2=None, in_affine=None):
         v = xf * a.float()[:, None, :, None] + c.float()[:, None, :, None]
         xf = _mish(v)
     b_, d, cin, _ = xf.shape
+    if padded:
+        slots = xf.new_zeros((b_, d, packed_channels(c1, cin - c1), h * w))
+        slots[:, :, :c1] = xf[:, :, :c1]
+        slots[:, :, _pad8(c1):_pad8(c1) + cin - c1] = xf[:, :, c1:]
+        xf, cin = slots, slots.shape[2]
     xp = torch.zeros((b_, d + 2, h + 2, w + 2, cin), dtype=torch.bfloat16,
                      device=x.device)
     xp[:, 1:-1, 1:-1, 1:-1] = xf.reshape(b_, d, cin, h, w).permute(0, 1, 3, 4, 2)
     return xp
 
 
-def conv3d_cs_reference(x, weights, bias, *, h, w, in_affine=None,
-                        emit_stats=False, pair=None):
-    """Plain PyTorch version of ``conv3d_cs`` with the kernel's roundings:
-    the input built by ``conv3d_cs_pack_reference`` (inputs rounded to
-    bf16, the pair bias rounded to bf16 and added in f32 with one rounding,
-    the affine prologue rounded to bf16), weights rounded to bf16, an f32
-    convolution without TF32, stats from the f32 output."""
-    if pair is not None and in_affine is not None:
-        raise ValueError("pair mode is incompatible with in_affine")
-    x2, w2, bias2 = _split_pair(pair)
-    xp = conv3d_cs_pack_reference(x, h=h, w=w, x2=x2, bias2=bias2,
-                                  in_affine=in_affine)
-    if w2 is not None:
-        weights = torch.cat([weights, w2], dim=3)
-    b_, d = xp.shape[0], xp.shape[1] - 2
-    cout = weights.shape[-1]
-    x5 = xp.float().permute(0, 4, 1, 2, 3)
-    w5 = weights.to(torch.bfloat16).float().permute(4, 3, 0, 1, 2)
+def conv3d_cs_packed_reference(xp, w_blk, bias, *, cout, emit_stats=False):
+    """Plain PyTorch version of ``conv3d_cs_packed``: the 3×3×3 VALID conv of
+    ``xp`` (B, D+2, H+2, W+2, C) bf16 with ``w_blk`` (⌈C_out/32⌉, 27·C, 32)
+    from ``block_weights``, in f32 without TF32, the bias added in f32;
+    (B, D, C_out, H·W) bf16 and, with ``emit_stats``, the per-plane (Σx, Σx²)
+    of the f32 output."""
+    b_, dp, hp, wp, cin = xp.shape
+    d, h, w = dp - 2, hp - 2, wp - 2
+    w_k = w_blk.permute(1, 0, 2).reshape(27 * cin, -1)[:, :cout]
+    w5 = w_k.float().reshape(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2)
     with full_f32():
-        y = F.conv3d(x5, w5)
+        y = F.conv3d(xp.float().permute(0, 4, 1, 2, 3), w5)
     if bias is not None:
         y = y + bias.float()[None, :, None, None, None]
     y = y.permute(0, 2, 1, 3, 4).reshape(b_, d, cout, h * w)
@@ -170,6 +198,23 @@ def conv3d_cs_reference(x, weights, bias, *, h, w, in_affine=None,
     if not emit_stats:
         return out
     return out, torch.stack([y.sum(dim=3), (y * y).sum(dim=3)], dim=2)
+
+
+def conv3d_cs_reference(x, weights, bias, *, h, w, in_affine=None,
+                        emit_stats=False, pair=None):
+    """Plain PyTorch version of ``conv3d_cs`` with the kernel's roundings:
+    the input built by ``conv3d_cs_pack_reference`` (inputs rounded to
+    bf16, the pair bias rounded to bf16 and added in f32 with one rounding,
+    the affine prologue rounded to bf16), weights rounded to bf16, then
+    ``conv3d_cs_packed_reference``: an f32 convolution without TF32, stats
+    from the f32 output."""
+    if pair is not None and in_affine is not None:
+        raise ValueError("pair mode is incompatible with in_affine")
+    x2, w2, bias2 = _split_pair(pair)
+    xp = conv3d_cs_pack_reference(x, h=h, w=w, x2=x2, bias2=bias2,
+                                  in_affine=in_affine)
+    return conv3d_cs_packed_reference(xp, block_weights(kernel_weights(weights, w2)), bias,
+                                      cout=weights.shape[-1], emit_stats=emit_stats)
 
 
 def _check(t, name, dtype, shape, device):
@@ -219,23 +264,22 @@ def _inputs(x, h, w, x2, bias2, in_affine):
 
 
 def conv3d_cs_pack(x, *, h, w, x2=None, bias2=None, in_affine=None):
-    """The packed conv input: (B, D+2, H+2, W+2, C1+C2) bf16 from ``x``
-    (B, D, C1, H·W) bf16 and, in pair mode, ``x2`` (B, D, C2, H·W) bf16 with
-    its ``bias2``; C1 and C2 multiples of 8. On the card its storage runs
-    ``TAIL`` voxels past its end (never written), which the packed conv may
-    read into rows it drops."""
+    """The packed conv input: (B, D+2, H+2, W+2, ``packed_channels(C1, C2)``)
+    bf16 from ``x`` (B, D, C1, H·W) bf16 and, in pair mode, ``x2`` (B, D,
+    C2, H·W) bf16 with its ``bias2``, the channels in the slots of
+    ``conv3d_cs_pack_reference(..., padded=True)``. On the card its storage
+    runs ``TAIL`` voxels past its end (never written), which the packed conv
+    may read into rows it drops."""
     if x.device.type == "cpu":
         return conv3d_cs_pack_reference(x, h=h, w=w, x2=x2, bias2=bias2,
-                                        in_affine=in_affine)
+                                        in_affine=in_affine, padded=True)
     pb, a, c = _inputs(x, h, w, x2, bias2, in_affine)
     b_, n_d, c1, _ = x.shape
     c2 = 0 if x2 is None else x2.shape[2]
-    if c1 % 8 or c2 % 8:
-        raise ValueError(f"conv3d_cs_pack needs C1 and C2 multiples of 8, got {c1}, {c2}")
-    cin = c1 + c2
-    shape = (b_, n_d + 2, h + 2, w + 2, cin)
-    n = b_ * (n_d + 2) * (h + 2) * (w + 2) * cin
-    xp = torch.empty(n + TAIL * cin, dtype=torch.bfloat16, device=x.device)[:n].view(shape)
+    cp = packed_channels(c1, c2)
+    shape = (b_, n_d + 2, h + 2, w + 2, cp)
+    n = b_ * (n_d + 2) * (h + 2) * (w + 2) * cp
+    xp = torch.empty(n + TAIL * cp, dtype=torch.bfloat16, device=x.device)[:n].view(shape)
     lib = _launcher()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -246,19 +290,32 @@ def conv3d_cs_pack(x, *, h, w, x2=None, bias2=None, in_affine=None):
     if err != 0:
         raise RuntimeError(f"conv3d_cs_pack kernel launch failed: CUDA error {err}")
     conv3d_cs_pack.launches += 1
+    if cp != c1 + c2:
+        conv3d_cs_pack.padded_launches += 1
     return xp
 
 
+# launches, and those of them that wrote pad slots (Cp > C1 + C2)
 conv3d_cs_pack.launches = 0
+conv3d_cs_pack.padded_launches = 0
 
 
-def kernel_weights(weights, w2=None):
+def kernel_weights(weights, w2=None, *, padded=False):
     """DHWIO weights (and pair mode's ``w2``) → (27·C_in, C_out) bf16, row
-    k = ((dz·3 + dy)·3 + dx)·C_in + ci."""
-    ws = [weights] if w2 is None else [weights, w2]
-    cout = weights.shape[-1]
-    cat = torch.cat(ws, dim=3).to(torch.bfloat16)
-    return cat.reshape(-1, cout).contiguous()
+    k = ((dz·3 + dy)·3 + dx)·C_in + ci. ``padded``: the pack's slots,
+    (27·Cp, C_out) with Cp = ``packed_channels(C1, C2)``, row tap·Cp + slot,
+    zero rows at the pad slots."""
+    c1, cout = weights.shape[3], weights.shape[4]
+    c2 = 0 if w2 is None else w2.shape[3]
+    if not padded or packed_channels(c1, c2) == c1 + c2:
+        ws = [weights] if w2 is None else [weights, w2]
+        return torch.cat(ws, dim=3).to(torch.bfloat16).reshape(-1, cout).contiguous()
+    out = torch.zeros((27, packed_channels(c1, c2), cout), dtype=torch.bfloat16,
+                      device=weights.device)
+    out[:, :c1] = weights.reshape(27, c1, cout)
+    if w2 is not None:
+        out[:, _pad8(c1):_pad8(c1) + c2] = w2.reshape(27, c2, cout)
+    return out.reshape(-1, cout)
 
 
 def narrow_weights(weights, w2=None):
@@ -301,15 +358,21 @@ def _outputs(b_, n_d, cout, s, emit_stats, dev):
 
 def conv3d_cs_packed(xp, w_blk, bias, *, cout, emit_stats=False):
     """The packed conv kernel on the card: ``xp`` from ``conv3d_cs_pack``
-    (B, D+2, H+2, W+2, C_in) with its tail, C_in a multiple of 16;
-    ``w_blk`` from ``block_weights``. Returns what ``conv3d_cs`` returns."""
+    (B, D+2, H+2, W+2, Cp) with its tail, Cp a multiple of 16; ``w_blk``
+    from ``block_weights(kernel_weights(..., padded=True))``, (⌈C_out/32⌉,
+    27·Cp, 32). Returns what ``conv3d_cs`` returns; the plain version
+    (``conv3d_cs_packed_reference``) on a CPU tensor."""
     dev = xp.device
+    if dev.type == "cpu":
+        return conv3d_cs_packed_reference(xp, w_blk, bias, cout=cout, emit_stats=emit_stats)
     if dev.type != "cuda":
-        raise ValueError(f"the packed conv runs on CUDA, not {dev}")
+        raise ValueError(f"the packed conv runs on CUDA or the CPU, not {dev}")
     b_, dp, hp, wp, cin = xp.shape
     n_d, h, w = dp - 2, hp - 2, wp - 2
-    if cin % 16:
-        raise ValueError(f"the packed conv needs C_in a multiple of 16, got {cin}")
+    if cin % PACKED_K:
+        raise ValueError(f"the packed conv needs C_in a multiple of {PACKED_K}, got {cin}")
+    if packed_smem_bytes(packed_tile_rows(h, w), w) > SMEM_OPTIN:
+        raise ValueError(f"the packed conv's ring does not fit a block on planes {w} wide")
     _check(xp, "xp", torch.bfloat16, xp.shape, dev)
     if xp.untyped_storage().nbytes() - xp.storage_offset() * 2 < (xp.numel() + TAIL * cin) * 2:
         raise ValueError(f"xp needs {TAIL} voxels of storage past its end (conv3d_cs_pack)")
@@ -413,12 +476,12 @@ def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
     path = conv3d_cs_path(x.shape[2], c2, w, cout)
     if path == "narrow":
         return _narrow(x, x2, pb, weights, w2, bias, a, c, h, w, emit_stats)
-    w_k = kernel_weights(weights, w2)
     if path == "packed":
         # xp is freed on return: the allocator orders its reuse on the stream
         xp = conv3d_cs_pack(x, h=h, w=w, x2=x2, bias2=bias2, in_affine=in_affine)
-        return conv3d_cs_packed(xp, block_weights(w_k), bias, cout=cout,
-                                emit_stats=emit_stats)
+        return conv3d_cs_packed(xp, block_weights(kernel_weights(weights, w2, padded=True)),
+                                bias, cout=cout, emit_stats=emit_stats)
+    w_k = kernel_weights(weights, w2)
     if path == "direct":
         return _direct(x, w_k, bias, a, c, h, w, emit_stats)
     return _gather(x, x2, pb, w_k, bias, a, c, h, w, emit_stats)
@@ -445,8 +508,8 @@ def conv3d_cs_narrow(x, weights, bias, *, h, w, in_affine=None,
 def conv3d_cs_gather(x, weights, bias, *, h, w, in_affine=None,
                      emit_stats=False, pair=None):
     """``conv3d_cs`` on the gather kernel whatever the shape (the plain
-    version on a CPU tensor): the path of the wider channel counts that are
-    not multiples of 16, and a yardstick for the narrow kernel."""
+    version on a CPU tensor): the path of planes too wide for the packed
+    conv's ring, and a yardstick for the other kernels."""
     if x.device.type == "cpu":
         return conv3d_cs_reference(
             x, weights, bias, h=h, w=w, in_affine=in_affine,

@@ -1,13 +1,17 @@
 """The port's conv3d_cs (plain version on the CPU) against the JAX package's
 Pallas conv3d_cs in interpret mode, on the same numpy inputs; the plain
 version of the pack step (conv3d_cs_pack_reference) against the prologue
-built the way the plain conv built it before, bit for bit, and a conv of its
-output against the JAX kernel.
+built the way the plain conv built it before, bit for bit, its padded layout
+(the channels in the slots the packed conv's K steps read, zeros elsewhere),
+and a conv of its output, and the plain packed conv on the padded pack,
+against the JAX kernel.
 
 Tolerances: outputs within one bf16 ULP at their magnitude — both sides sum
 the same bf16 products in f32, in other orders, and round once, so a sum
 near a rounding boundary may land one step apart (tests/test_pallas_kernels.py
-argues the same bound). Stats within rtol 1e-3 of the f32 sums."""
+argues the same bound); the plain packed conv with a bias at one ULP of
+max(|value|, rms), as the card tests hold the kernels. Stats within rtol
+1e-3 of the f32 sums."""
 
 import numpy as np
 import pytest
@@ -25,6 +29,8 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     conv3d_cs_narrow,
     conv3d_cs_pack,
     conv3d_cs_pack_reference,
+    conv3d_cs_packed,
+    conv3d_cs_packed_reference,
     conv3d_cs_path,
     conv3d_cs_reference,
     direct_band_rows,
@@ -33,9 +39,11 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     narrow_k,
     narrow_smem_bytes,
     narrow_weights,
+    packed_channels,
+    packed_smem_bytes,
     packed_tile_rows,
 )
-from delivr_cfos_tpu_torch.ops.conv3d_cs import NARROW_MAX, NARROW_SMEM_BYTES
+from delivr_cfos_tpu_torch.ops.conv3d_cs import NARROW_MAX, NARROW_SMEM_BYTES, SMEM_OPTIN
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, D, H, W = 2, 5, 6, 8
@@ -47,11 +55,18 @@ def _bf16_ulp(v):
     return 2.0 ** (np.floor(np.log2(mag)) - 7)
 
 
-def assert_within_one_ulp(got, want):
+def assert_within_one_ulp(got, want, rms_floor=False):
+    """``rms_floor``: the ULP at max(|value|, rms of want), as the card tests
+    bound it — a sum of 27·C_in products plus a bias that cancels to near
+    zero may differ by more than a ULP of the tiny result in f32 rounding,
+    never by a ULP of the typical one."""
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     assert got.shape == want.shape
-    bound = _bf16_ulp(np.maximum(np.abs(got), np.abs(want)))
+    mag = np.maximum(np.abs(got), np.abs(want))
+    if rms_floor:
+        mag = np.maximum(mag, np.sqrt(np.mean(want.astype(np.float64) ** 2)))
+    bound = _bf16_ulp(mag)
     diff = np.abs(got - want)
     assert (diff <= bound).all(), float((diff / bound).max())
 
@@ -201,15 +216,26 @@ def _prologue_then_pad(x, h, w, x2=None, bias2=None, in_affine=None):
     return torch.nn.functional.pad(x5, (0, 0, 1, 1, 1, 1, 1, 1)).to(torch.bfloat16)
 
 
+# kind: (C1, C2, C_out, what the input carries) of the pack and conv cases;
+# the last five are C_in above 16 and not multiples of 16, which the pack
+# pads to its slots
+PACK_CASES = {
+    "plain": (4, 0, 5, None), "pair": (4, 6, 5, "pair"), "affine": (4, 0, 5, "affine"),
+    "c24": (24, 0, 24, None), "pair24_24": (24, 24, 24, "pair"),
+    "affine20": (20, 0, 40, "affine"), "c17": (17, 0, 32, None),
+    "pair16_8": (16, 8, 32, "pair"),
+}
+
+
 def _pack_case(kind, h, w):
     rng = np.random.default_rng(len(kind) * 100 + h * w)
-    c1, c2 = (4, 6) if kind == "pair" else (4, 0)
+    c1, c2, _, extra = PACK_CASES[kind]
     x = _bf16(rng.standard_normal((B, D, c1, h * w)) * 2)
     kw = {}
-    if kind == "pair":
+    if extra == "pair":
         kw["x2"] = _bf16(rng.standard_normal((B, D, c2, h * w)))
         kw["bias2"] = _t(rng.standard_normal(c2))
-    if kind == "affine":
+    if extra == "affine":
         kw["in_affine"] = (_t(rng.uniform(0.5, 1.5, (B, c1))),
                            _t(rng.normal(0, 0.3, (B, c1))))
     return x, kw
@@ -224,42 +250,83 @@ def test_pack_reference_is_the_plain_prologue_bit_for_bit(kind, h, w):
     assert got.dtype == torch.bfloat16
     assert got.shape == (B, D + 2, h + 2, w + 2, want.shape[-1])
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
-    # the wrapper on a CPU tensor is the plain version, and counts no launch
+    # the wrapper on a CPU tensor is the plain version of the kernel's
+    # padded layout, and counts no launch
     before = conv3d_cs_pack.launches
-    assert torch.equal(conv3d_cs_pack(x, h=h, w=w, **kw), got)
+    assert torch.equal(conv3d_cs_pack(x, h=h, w=w, **kw),
+                       conv3d_cs_pack_reference(x, h=h, w=w, padded=True, **kw))
     assert conv3d_cs_pack.launches == before
 
 
+@pytest.mark.parametrize("kind", list(PACK_CASES))
+def test_padded_pack_puts_each_channel_in_its_slot_and_exact_zeros_elsewhere(kind):
+    """The padded layout bit for bit: x in slots [0, C1), x2 (with its bias)
+    in [C1p, C1p + C2), C1p = C1 padded to 8, Cp the sum of the padded
+    counts padded to 16; every other slot, and the halo, an exact zero, with
+    the affine prologue too (mish(c) ≠ 0 would be wrong there)."""
+    x, kw = _pack_case(kind, H, W)
+    c1, c2, _, _ = PACK_CASES[kind]
+    c1p = -(-c1 // 8) * 8
+    cp = packed_channels(c1, c2)
+    assert cp % 16 == 0 and c1p + -(-c2 // 8) * 8 <= cp < c1p + -(-c2 // 8) * 8 + 16
+    plain = conv3d_cs_pack_reference(x, h=H, w=W, **kw).view(torch.int16)
+    got = conv3d_cs_pack_reference(x, h=H, w=W, padded=True, **kw).view(torch.int16)
+    assert got.shape == (B, D + 2, H + 2, W + 2, cp)
+    assert torch.equal(got[..., :c1], plain[..., :c1])
+    assert torch.equal(got[..., c1p:c1p + c2], plain[..., c1:])
+    pads = torch.ones(cp, dtype=torch.bool)
+    pads[:c1] = pads[c1p:c1p + c2] = False
+    assert not got[..., pads].any()
+    if c1 % 16 == 0 and c2 % 16 == 0:
+        assert torch.equal(got, plain)  # the production shapes: no slot moves
+
+
 @pytest.mark.parametrize("h,w", [(H, W), (5, 7)])
-@pytest.mark.parametrize("kind", ["plain", "pair", "affine"])
+@pytest.mark.parametrize("kind", list(PACK_CASES))
 def test_conv_of_the_packed_input_matches_jax(kind, h, w):
-    """F.conv3d without padding over the packed plain input, against the
-    JAX kernel in interpret mode on the same values: one bf16 ULP."""
+    """F.conv3d without padding over the packed plain input, and the plain
+    packed conv on the padded pack with the padded weights in the packed
+    conv's block layout, against the JAX kernel in interpret mode on the
+    same values: one bf16 ULP, stats rtol 1e-3."""
     x, kw = _pack_case(kind, h, w)
     rng = np.random.default_rng(11)
-    cin = x.shape[2] + (kw["x2"].shape[2] if "x2" in kw else 0)
-    wt = (rng.standard_normal((3, 3, 3, cin, 5)) * 0.2).astype(np.float32)
+    c1, c2, cout, _ = PACK_CASES[kind]
+    cin = c1 + c2
+    wt = (rng.standard_normal((3, 3, 3, cin, cout)) * 0.2).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
     xp = conv3d_cs_pack_reference(x, h=h, w=w, **kw)
     w5 = _bf16(wt).float().permute(4, 3, 0, 1, 2)
     y = torch.nn.functional.conv3d(xp.float().permute(0, 4, 1, 2, 3), w5)
-    got = y.permute(0, 2, 1, 3, 4).reshape(B, D, 5, h * w).to(torch.bfloat16)
+    got = y.permute(0, 2, 1, 3, 4).reshape(B, D, cout, h * w).to(torch.bfloat16)
+    w_blk = block_weights(kernel_weights(_t(wt[:, :, :, :c1]),
+                                         _t(wt[:, :, :, c1:]) if c2 else None, padded=True))
+    xpp = conv3d_cs_pack_reference(x, h=h, w=w, padded=True, **kw)
+    assert w_blk.shape == (-(-cout // 32), 27 * xpp.shape[-1], 32)
+    got_p, st_p = conv3d_cs_packed_reference(xpp, w_blk, _t(bias), cout=cout, emit_stats=True)
     jx = jnp.asarray(_np(x), jnp.bfloat16)
     jkw = {}
-    if kind == "pair":
-        c1 = x.shape[2]
+    if c2:
         jkw["pair"] = (jnp.asarray(_np(kw["x2"]), jnp.bfloat16),
                        jnp.asarray(wt[:, :, :, c1:]), jnp.asarray(kw["bias2"].numpy()))
         wt = wt[:, :, :, :c1]
-    if kind == "affine":
+    if "in_affine" in kw:
         jkw["in_affine"] = tuple(jnp.asarray(t.numpy()) for t in kw["in_affine"])
     want = jax_conv3d_cs(jx, jnp.asarray(wt), None, h=h, w=w, interpret=True, **jkw)
     assert_within_one_ulp(_np(got), want)
+    want_b, st_want = jax_conv3d_cs(jx, jnp.asarray(wt), jnp.asarray(bias), h=h, w=w,
+                                    interpret=True, emit_stats=True, **jkw)
+    assert_within_one_ulp(_np(got_p), want_b, rms_floor=True)
+    assert_stats_close(st_p.numpy(), st_want)
+    # the packed wrapper on a CPU tensor is that plain version
+    again = conv3d_cs_packed(xpp, w_blk, _t(bias), cout=cout, emit_stats=True)
+    assert torch.equal(again[0], got_p) and torch.equal(again[1], st_p)
 
 
 def test_path_rule_and_block_weights():
     assert conv3d_cs_path(32, 0, 64, 32) == conv3d_cs_path(32, 32, 64, 32) == "packed"
     assert conv3d_cs_path(1, 0, 64, 4) == "narrow"
-    assert conv3d_cs_path(16, 8, 64, 32) == "gather"
+    # C_in above 16, not a multiple of 16: the packed conv on padded slots
+    assert conv3d_cs_path(16, 8, 64, 32) == "packed"
     # 256-row tiles on the level-0/1/2 planes, 128 on levels 3-4
     assert [packed_tile_rows(96 >> i, 64 >> i) for i in range(5)] == [256, 256, 256, 128, 128]
     w = torch.arange(27 * 16 * 40, dtype=torch.float32).reshape(3, 3, 3, 16, 40)
@@ -281,12 +348,51 @@ def test_path_rule_and_block_weights():
     (16, 16, 7, 4, "packed"),
     (2, 0, 64, 64, "narrow"),  # the packed first conv at G = 2
     (NARROW_MAX - 6, 6, 64, 32, "narrow"),  # C1 + C2 = NARROW_MAX
-    (NARROW_MAX + 1, 0, 64, 32, "gather"),  # one more, not a multiple of 16
-    (NARROW_MAX - 7, 8, 64, 32, "gather"),
-    (8, 0, 1024, 32, "gather"),  # not one row of the plane fits
+    (NARROW_MAX + 1, 0, 64, 32, "packed"),  # one more: padded to 32 slots
+    (NARROW_MAX - 7, 8, 64, 32, "packed"),  # 9 + 8: slots 16 + 8, padded to 32
+    (8, 0, 1024, 32, "gather"),  # not one row of the plane fits, nor the ring
+    (24, 0, 64, 24, "packed"),  # a (24, 24, 48, 96, 192, 24) model's level 0
+    (16, 8, 64, 32, "packed"),
+    (24, 24, 32, 24, "packed"),  # its upcat_1.0: 48 slots, none a pad
+    (15, 0, 300, 32, "packed"),  # the narrow conv stages no row; the ring fits
+    (32, 0, 556, 32, "packed"),  # the widest plane the packed ring takes
+    (32, 0, 557, 32, "gather"),
+    (17, 0, 1024, 32, "gather"),
 ])
 def test_conv3d_cs_path_rule(c1, c2, w, cout, path):
     assert conv3d_cs_path(c1, c2, w, cout) == path
+
+
+def test_packed_ring_bytes_mirror_the_kernel():
+    """``packed_smem_bytes`` is the kernel's 3 · packed_stage_elems · 2:
+    90,720 bytes at 256-row tiles on the 64-wide plane (the source note);
+    the widest plane a block's 232,448 bytes take is 556 columns."""
+    assert packed_smem_bytes(256, 64) == 90_720
+    assert packed_smem_bytes(256, 556) <= SMEM_OPTIN < packed_smem_bytes(256, 557)
+    # a plane wider than 126 columns has 256-row tiles whatever its height
+    assert packed_tile_rows(1, 127) == 256 and packed_tile_rows(1, 126) == 128
+
+
+@pytest.mark.parametrize("c1,c2,cout", [(24, 0, 24), (17, 0, 32), (24, 24, 24),
+                                         (16, 8, 40), (20, 0, 8), (32, 16, 8)])
+def test_padded_kernel_weights_follow_the_pack_slots(c1, c2, cout):
+    """Row tap·Cp + slot holds the weight of the concat channel in that slot,
+    zero rows at the pad slots; the unpadded form where no slot moves."""
+    g = torch.Generator().manual_seed(c1 * 100 + c2)
+    w1 = torch.randn((3, 3, 3, c1, cout), generator=g)
+    w2 = torch.randn((3, 3, 3, c2, cout), generator=g) if c2 else None
+    cp, c1p = packed_channels(c1, c2), -(-c1 // 8) * 8
+    wp = kernel_weights(w1, w2, padded=True)
+    assert wp.dtype == torch.bfloat16 and wp.shape == (27 * cp, cout)
+    taps = wp.view(27, cp, cout)
+    unpadded = kernel_weights(w1, w2).view(27, c1 + c2, cout)
+    assert torch.equal(taps[:, :c1], unpadded[:, :c1])
+    assert torch.equal(taps[:, c1p:c1p + c2], unpadded[:, c1:])
+    pads = torch.ones(cp, dtype=torch.bool)
+    pads[:c1] = pads[c1p:c1p + c2] = False
+    assert not taps[:, pads].any()
+    if cp == c1 + c2:
+        assert torch.equal(wp, kernel_weights(w1, w2))
 
 
 @pytest.mark.parametrize("cin,h,w", [

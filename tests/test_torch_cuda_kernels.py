@@ -20,11 +20,13 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     conv3d_cs_pack,
     conv3d_cs_pack_reference,
     conv3d_cs_packed,
+    conv3d_cs_packed_reference,
     conv3d_cs_path,
     conv3d_cs_reference,
     conv3d_cs_resources,
     kernel_weights,
     narrow_band_rows,
+    packed_channels,
 )
 from delivr_cfos_tpu_torch.ops.conv3d_cs import NARROW_MAX
 from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
@@ -74,6 +76,9 @@ def _ulps(got, want):
     (1, 3, 9, 16, 32, 0, 40, True),
     (2, 3, 7, 32, 16, 16, 32, False),
     (1, 2, 3, 128, 48, 16, 8, False),
+    # packed path on padded slots (C_in above 16, not a multiple of 16)
+    (1, 3, 9, 16, 20, 0, 40, True),
+    (2, 3, 6, 24, 24, 24, 24, False),
 ])
 def test_conv3d_cs_kernel_matches_plain_version(dev, b, d, h, w, cin, c2, cout,
                                                 affine):
@@ -92,8 +97,9 @@ def test_conv3d_cs_kernel_matches_plain_version(dev, b, d, h, w, cin, c2, cout,
     if affine:
         kw["in_affine"] = (rnd(b, cin).abs() + 0.5, rnd(b, cin, scale=0.3))
     # C_in = 1 with C_out = 4 takes the narrow kernel, not the direct one
-    packed = cin % 16 == 0 and c2 % 16 == 0
-    assert conv3d_cs_path(cin, c2, w, cout) == ("packed" if packed else "narrow")
+    unpadded = cin % 16 == 0 and c2 % 16 == 0
+    assert conv3d_cs_path(cin, c2, w, cout) == (
+        "packed" if unpadded or cin + c2 > NARROW_MAX else "narrow")
     before = conv3d_cs.launches
     got, st = conv3d_cs(x, wt, bias, h=h, w=w, emit_stats=True, **kw)
     torch.cuda.synchronize()
@@ -116,6 +122,13 @@ def test_conv3d_cs_kernel_matches_plain_version(dev, b, d, h, w, cin, c2, cout,
     (1, 2, 1, 255, 32, 0, 16),
     (1, 3, 9, 64, 32, 16, 40),
     (2, 2, 5, 9, 48, 0, 72),
+    # padded slots: 24 → 32 on the level-0 row, 24 + 24 (48 slots, no pad),
+    # 17 → 32 on a ragged plane, 16 + 8 → 32, 20 → 32 with C_out 40
+    (2, 3, 6, 64, 24, 0, 24),
+    (1, 3, 9, 16, 24, 24, 24),
+    (2, 2, 5, 9, 17, 0, 32),
+    (1, 2, 7, 32, 16, 8, 32),
+    (1, 3, 8, 40, 20, 0, 40),
 ])
 def test_conv3d_cs_packed_ring_with_ragged_tiles(dev, b, d, h, w, c1, c2, cout):
     g = torch.Generator().manual_seed(h * 1000 + w)
@@ -150,11 +163,20 @@ def test_conv3d_cs_packed_ring_with_ragged_tiles(dev, b, d, h, w, c1, c2, cout):
     # one voxel a load: ragged planes (H·W = 35, 15), C = 8 groups
     (1, 3, 5, 7, 16, 16, True, False),
     (2, 2, 3, 5, 8, 0, False, True),
+    # padded slots: C1 = 24, 20 (with the prologue: its pads stay zero) and
+    # 17, 24 + 24 with the pair bias, 16 + 8, and 17 one voxel a load
+    (2, 3, 4, 64, 24, 0, False, False),
+    (1, 3, 6, 16, 20, 0, False, True),
+    (2, 2, 4, 64, 17, 0, False, False),
+    (1, 3, 9, 16, 24, 24, True, False),
+    (1, 2, 6, 16, 16, 8, True, False),
+    (1, 3, 5, 7, 17, 0, False, True),
 ])
 def test_conv3d_cs_pack_kernel_matches_plain_version(dev, b, d, h, w, c1, c2,
                                                      bias2, affine):
     """Bit for bit: the kernel rounds as the plain version does (the pair
-    bias sum once, the affine product and sum apart, PyTorch's mish)."""
+    bias sum once, the affine product and sum apart, PyTorch's mish), and
+    writes the plain version's padded slots, exact zeros at the pads."""
     g = torch.Generator().manual_seed(c1 * 10 + c2 + w)
     x = (torch.randn((b, d, c1, h * w), generator=g) * 2).to(dev, torch.bfloat16)
     kw = {}
@@ -165,12 +187,14 @@ def test_conv3d_cs_pack_kernel_matches_plain_version(dev, b, d, h, w, c1, c2,
     if affine:
         kw["in_affine"] = ((torch.rand((b, c1 + c2), generator=g) + 0.5).to(dev),
                            (torch.randn((b, c1 + c2), generator=g) * 0.3).to(dev))
-    before = conv3d_cs_pack.launches
+    before = conv3d_cs_pack.launches, conv3d_cs_pack.padded_launches
     got = conv3d_cs_pack(x, h=h, w=w, **kw)
     torch.cuda.synchronize()
-    assert conv3d_cs_pack.launches == before + 1
-    want = conv3d_cs_pack_reference(x, h=h, w=w, **kw)
-    assert got.shape == want.shape == (b, d + 2, h + 2, w + 2, c1 + c2)
+    padded = packed_channels(c1, c2) != c1 + c2
+    assert (conv3d_cs_pack.launches, conv3d_cs_pack.padded_launches) == (
+        before[0] + 1, before[1] + padded)
+    want = conv3d_cs_pack_reference(x, h=h, w=w, padded=True, **kw)
+    assert got.shape == want.shape == (b, d + 2, h + 2, w + 2, packed_channels(c1, c2))
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
@@ -181,8 +205,12 @@ def test_conv3d_cs_pack_on_a_misaligned_view(dev):
     x = base[1:].reshape(2, 3, 16, 32)
     got = conv3d_cs_pack(x, h=4, w=8)
     assert torch.equal(got, conv3d_cs_pack_reference(x, h=4, w=8))
-    with pytest.raises(ValueError, match="multiples of 8"):
-        conv3d_cs_pack(x[:, :, :12].contiguous(), h=4, w=8)
+    # 12 channels of a misaligned view: 16 slots, the last four zeros
+    base12 = torch.randn(1 + 2 * 3 * 12 * 32, device=dev).to(torch.bfloat16)
+    x12 = base12[1:].reshape(2, 3, 12, 32)
+    got12 = conv3d_cs_pack(x12, h=4, w=8)
+    assert got12.shape[-1] == 16 and not got12[..., 12:].view(torch.int16).any()
+    assert torch.equal(got12, conv3d_cs_pack_reference(x12, h=4, w=8, padded=True))
 
 
 def test_conv3d_cs_direct_on_a_misaligned_view(dev):
@@ -220,6 +248,68 @@ def test_conv3d_cs_rejects_what_the_kernel_does_not_take(dev):
     x1 = torch.zeros(1, 2, 1, 16, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError, match="direct conv"):
         conv3d_cs_direct(x1, torch.zeros(3, 3, 3, 1, 4, device=dev), None, h=4, w=4)
+
+
+@pytest.mark.parametrize("c1,c2,affine", [(24, 0, False), (20, 0, True), (17, 0, False),
+                                          (24, 24, False)])
+def test_conv3d_cs_padded_packed_conv_matches_plain_versions(dev, c1, c2, affine):
+    """The packed conv on padded slots: within one bf16 ULP of
+    conv3d_cs_reference (unpadded) and of conv3d_cs_packed_reference on the
+    same xp and padded weights, stats rtol 1e-3, the same bits on a second
+    launch."""
+    g = torch.Generator().manual_seed(c1 * 10 + c2)
+    b, d, h, w, cout = 2, 4, 12, 64, 24
+    x = torch.randn((b, d, c1, h * w), generator=g).to(dev, torch.bfloat16)
+    wt = (torch.randn((3, 3, 3, c1, cout), generator=g) * 0.2).to(dev)
+    bias = torch.randn((cout,), generator=g).to(dev)
+    kw, pk = {}, {}
+    if c2:
+        x2 = torch.randn((b, d, c2, h * w), generator=g).to(dev, torch.bfloat16)
+        w2 = (torch.randn((3, 3, 3, c2, cout), generator=g) * 0.2).to(dev)
+        b2 = torch.randn((c2,), generator=g).to(dev)
+        kw["pair"], pk = (x2, w2, b2), dict(x2=x2, bias2=b2)
+    if affine:
+        kw["in_affine"] = pk["in_affine"] = (
+            (torch.rand((b, c1), generator=g) + 0.5).to(dev),
+            (torch.randn((b, c1), generator=g) * 0.3).to(dev))
+    assert conv3d_cs_path(c1, c2, w, cout) == "packed"
+    xp = conv3d_cs_pack(x, h=h, w=w, **pk)
+    w_blk = block_weights(kernel_weights(wt, kw["pair"][1] if c2 else None, padded=True))
+    before = conv3d_cs_packed.launches
+    got, st = conv3d_cs_packed(xp, w_blk, bias, cout=cout, emit_stats=True)
+    torch.cuda.synchronize()
+    assert conv3d_cs_packed.launches == before + 1
+    tol = lambda s: dict(rtol=1e-3, atol=1e-3 * float(s.abs().max()))  # noqa: E731
+    for want, st_want in (
+            conv3d_cs_reference(x, wt, bias, h=h, w=w, emit_stats=True, **kw),
+            conv3d_cs_packed_reference(xp, w_blk, bias, cout=cout, emit_stats=True)):
+        assert _ulps(got, want) <= 1.0
+        torch.testing.assert_close(st, st_want, **tol(st_want))
+    again = conv3d_cs(x, wt, bias, h=h, w=w, emit_stats=True, **kw)
+    assert torch.equal(again[0], got) and torch.equal(again[1], st)
+
+
+def test_conv3d_cs_planes_wider_than_the_packed_ring_take_the_gather_kernel(dev):
+    """At C 32 → 32 the packed ring fits planes up to 556 wide; a 1024-wide
+    plane takes the gather kernel and matches its plain version; the packed
+    conv refuses it rather than fail to launch."""
+    g = torch.Generator().manual_seed(1024)
+    for w, path in ((556, "packed"), (1024, "gather")):
+        x = torch.randn((1, 3, 32, 4 * w), generator=g).to(dev, torch.bfloat16)
+        wt = (torch.randn((3, 3, 3, 32, 32), generator=g) * 0.1).to(dev)
+        assert conv3d_cs_path(32, 0, w, 32) == path
+        before = conv3d_cs_gather.launches, conv3d_cs_packed.launches
+        got, st = conv3d_cs(x, wt, None, h=4, w=w, emit_stats=True)
+        torch.cuda.synchronize()
+        assert (conv3d_cs_gather.launches - before[0],
+                conv3d_cs_packed.launches - before[1]) == ((0, 1) if path == "packed" else (1, 0))
+        want, st_want = conv3d_cs_reference(x, wt, None, h=4, w=w, emit_stats=True)
+        assert _ulps(got, want) <= 1.0
+        torch.testing.assert_close(st, st_want, rtol=1e-3,
+                                   atol=1e-3 * float(st_want.abs().max()))
+    xp = conv3d_cs_pack(x, h=4, w=1024)
+    with pytest.raises(ValueError, match="ring"):
+        conv3d_cs_packed(xp, block_weights(kernel_weights(wt)), None, cout=32)
 
 
 @pytest.mark.parametrize("b,d,h,w,cout,extra", [
