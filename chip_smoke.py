@@ -15,18 +15,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
              ULP (at max(|value|, rms of the output)), stats within rtol 1e-3.
              On the packed path (all but the C_in = 1 first conv) also
              conv3d_cs_pack against its plain version, bit for bit. Each row
-             gives the path (packed / direct / narrow / gather), the conv
+             gives the path (packed / direct / narrow) and the packed
+             instance (ring / wide), the conv
              kernel's ms and the pack's ms apart (off the packed path device
              time, the host's enqueueing excluded), their sum, the bounds,
              TFLOP/s, the plain versions' ms, one cuDNN bf16 F.conv3d and,
              for the pack, one F.pad of the channels-last view (yardsticks
              only; the port never calls them), the kernel's registers and
              blocks per SM; a "kernel_sum" line sums the 18 shapes. The
-             first conv takes the direct kernel; "conv_0.0/gather" and
-             "conv_0.0/narrow" rows hold the gather and narrow kernels to the
-             same check at the same shape, and time them. Two more rows: the
-             packed first conv (8 × (96, 96, 64), C 2 → 64) on the gather
-             kernel ("packed/conv_0.0/gather"), and G = 4's first conv
+             first conv takes the direct kernel; "conv_0.0/wide" and
+             "conv_0.0/narrow" rows hold the packed conv's wide instance
+             (with the pack, C_in = 1 in 16 slots) and the narrow kernel to
+             the same check at the same shape, and time them. Two more rows:
+             the packed first conv (8 × (96, 96, 64), C 2 → 64) on the wide
+             instance ("packed/conv_0.0/wide"), and G = 4's first conv
              (4 × (96, 96, 64), C 4 → 128, narrow path, "g4/conv_0.0").
    deconv  — deconv2x_cs against its plain version at the four UpCat shapes
              of the same forward at the same batch, and upcat_1 with a bias:
@@ -48,7 +50,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              (models/packing.py: block-diagonal weights, features (64, 64,
              128, 256, 512, 64)) on 16 bright (96, 96, 64) windows of phase
              6's volume, 8 packed inputs. Fast: 18 conv3d_cs (1 narrow for
-             the C_in = 2 first conv, 17 packed, no gather), 17
+             the C_in = 2 first conv, 17 packed, none wide), 17
              conv3d_cs_pack and 4 deconv2x_cs launches (counts set to 0 just
              before the packed forward, read just after), no library
              convolution and the narrow kernel in a traced run; logits
@@ -65,20 +67,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
              convs that take 24 or 24 + 24 channels in take the pack and the
              packed conv on channels padded to 16-slot K steps by the path
              rule: 18 conv3d_cs, 17 packed, 17 packs (6 of them writing pad
-             slots: 24 + 24 fills 48), 1 direct, no gather (counts set to 0
+             slots: 24 + 24 fills 48), 1 direct, none wide (counts set to 0
              just before, read just after); logits against
              its parity forward with phase 4's bound; then for each of those
              8 shapes a "kernel" row of the route (pack bit for bit, the
              conv within one ULP, pack and conv device times apart, cuDNN,
-             plain, the unpadded work's bound) and one of the gather kernel
-             forced, and a "padded_path_sum" line over the 8.
+             plain, the unpadded work's bound) and one of the packed conv's
+             wide instance forced, and a "padded_path_sum" line over the 8.
 4d. wide_path — the full-width fast forward on 2 seeded windows of
              WIDE_ROI (16, 16, 1024): its level-0 planes are too wide for
              the packed conv's ring of stages, so conv_0.1, upcat_1.0 and
-             upcat_1.1 take the gather kernel by the path rule (launches as
-             the rule gives them, counts set to 0 just before, read just
-             after), logits against parity with phase 4's bound; then a
-             "kernel" row for each gather shape.
+             upcat_1.1 take the pack and the packed conv's wide instance by
+             the path rule (3 wide launches, counts set to 0 just before,
+             read just after), logits against parity with phase 4's bound;
+             then a "kernel" row for each wide shape, at WIDE_ROI and at
+             WIDE_TIMED_ROI (64, 96, 640) (timing rows: level 0 640 wide),
+             each within one ULP and the same bits on a relaunch, with a
+             "wide_path_sum" line for each window (pack, conv, their sum,
+             cuDNN, plain, the bound).
 5. stage1  — stage 1 (pipeline/stage01_downsample_mask.py::downsample_mask)
              on 192 uncompressed uint16 TIFF planes of the (192, 480, 384)
              volume of phase 6 at the default ratios (4, 15, 15): first
@@ -105,13 +111,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              with precision 'auto' (fast on CUDA) and TTA off, then parity;
              checks the kernel launch counts (18 conv3d_cs, of which 17
              packed and 1 direct, 17 conv3d_cs_pack and 4 deconv2x_cs per
-             forward batch, no gather),
+             forward batch, none on the wide instance),
              binaries.npy, and that fast and parity binaries differ only
              inside the measured logit margin; one more fast run under
              torch.profiler gives the device time by kernel (phase
              "profile") and shows that no convolution or transposed
-             convolution of the library ran, and no conv3d_cs_gather_kernel
-             or conv3d_cs_narrow_kernel.
+             convolution of the library ran, and no
+             conv3d_cs_packed_wide_kernel or conv3d_cs_narrow_kernel.
 7. fused   — stage 2 in parity with BasicUNetConfig(fused_in_mish=True) on
              the same volume: 18 instance_norm_mish launches per forward
              batch, no conv3d_cs, binaries equal to phase 6's parity run
@@ -143,7 +149,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              np.memmap of the same array, with phase 10's window config,
              model config, slab depth and batch: logits and binaries equal
              to the bit, the same launches (18 conv3d_cs with 1 direct and
-             no gather, 17 packs, 4 deconvs per forward batch); seconds of
+             none wide, 17 packs, 4 deconvs per forward batch); seconds of
              the write, of both streams and of the slab reads (chunk reads
              and zlib decode, on the prefetch thread), GVox/s, peak GiB.
 10b. sharded — stage 2 z-sharded over meshes that name the card 2 and 4
@@ -152,7 +158,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              mesh= on phase 6's volume, mean logits (sharded_infer_volume)
              within rtol = atol = 1e-4 of the single-device engine's,
              binaries equal to phase 6's outside the 1e-3 logit band, 18
-             conv3d_cs (17 packed, 1 direct, no gather), 17 conv3d_cs_pack
+             conv3d_cs (17 packed, 1 direct, none wide), 17 conv3d_cs_pack
              and 4 deconv2x_cs launches per forward batch summed over
              shards, halo planes and MB pulled and pushed, seconds, GVox/s,
              peak GiB, and no library convolution in one traced run; then
@@ -206,7 +212,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              brain (stage 4's included), and in the second run cells outside
              background in stage 5's table and colored voxels in stage 6
              (phase "pipeline_cli"). Then run_pipeline in process with
-             stage 2 alone: 18 conv3d_cs (17 packed, 1 direct, no gather),
+             stage 2 alone: 18 conv3d_cs (17 packed, 1 direct, none wide),
              17 conv3d_cs_pack and 4 deconv2x_cs launches per forward batch
              ("pipeline_runner"). Stage 5 on the 1e6 cells phase 12 warped,
              on the card and on the CPU: every CSV and both .xlsx (member by
@@ -234,11 +240,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
              the bit, the resumed run's final parameters against the
              uninterrupted run's; (d) export_npz of (c)'s weights and
              run_inference_from_nifti on the card on a seeded (192, 480, 384)
-             .nii with 300 blobs: 18 conv3d_cs (17 packed, 1 direct), 17
-             conv3d_cs_pack and 4 deconv2x_cs launches per forward batch, no
-             library convolution in the trace, binaries equal to a parity
-             run's outside the 1e-3 logit band, stage-3 cell counts fast and
-             parity and the share of blob centres found (printed, not held);
+             .nii with 300 blobs: 18 conv3d_cs (17 packed, none wide, 1
+             direct), 17 conv3d_cs_pack and 4 deconv2x_cs launches per
+             forward batch, no library convolution in the trace, binaries.npy
+             equal to the returned binaries and to infer_volume's fast
+             binaries, and the fast-vs-parity contract of phase 6: every
+             blob centre found by both, every voxel that flips within the
+             measured sigmoid margin of the cut, that margin at most
+             NIFTI_MARGIN_MAX, stage-3 cell counts fast and parity equal
+             but for at most one a flipped voxel (a cell one run has and the
+             other lacks holds or borders a voxel that flipped);
              (e) the dp×sp step on {"dp": 2, "sp": 2} naming the card four
              times, full width, batch 2 of (64, 96, 96), against one device:
              loss within rtol 1e-4, the decoder's gradients within 1e-4 of
@@ -248,11 +259,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
              seconds a step.
 14. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
              conv3d_cs_direct, conv3d_cs_narrow with phase 4b's launches,
-             conv3d_cs_gather with phase 4d's, conv3d_cs_pack,
-             instance_norm_mish, deconv2x_cs; conv3d_cs and conv3d_cs_pack
-             carry a "padded" field: phase 4c's launches on pad slots and
-             the sums over its 6 shapes with pad slots), the nvidia-smi
-             line, then the result line.
+             conv3d_cs_pack, instance_norm_mish, deconv2x_cs; conv3d_cs and
+             conv3d_cs_pack carry a "padded" field: phase 4c's launches on
+             pad slots and the sums over its 6 shapes with pad slots;
+             conv3d_cs a "wide" field: phase 4d's launches on the wide
+             instance and the sums over its 3 shapes, pack and conv, at
+             WIDE_ROI and at WIDE_TIMED_ROI), the nvidia-smi line, then the
+             result line.
 
 Every time, rate and memory figure is printed beside the card's name and
 power limit (the "card" key).
@@ -290,8 +303,10 @@ PACK_WINDOWS = 16  # windows of phase 4b: 8 packed inputs
 # multiple of 16, so the 8 convs that take them in (conv_0.1, down_1, down_2.0,
 # upcat_2, upcat_1) take the packed conv on channels padded to 16-slot steps
 PADDED_FEATURES = (24, 24, 48, 96, 192, 24)
-# phase 4d: windows whose level-0 planes are too wide for the packed ring
+# phase 4d: windows whose level-0 planes are too wide for the packed ring,
+# and a window a user could configure (level 0 640 wide, level 1 320), timed
 WIDE_ROI = (16, 16, 1024)
+WIDE_TIMED_ROI = (64, 96, 640)
 WIDE_WINDOWS = 2
 ZARR_CHUNKS = (64, 128, 128)  # phase 10a's zarr v2 chunks of STREAM_VOLUME
 # stage 1's 8-bit stack of a (1300, 6000, 7000) raw brain at the default
@@ -454,21 +469,42 @@ def padded_entry(launches, rows, ms, plain, bound, library):
                 ("library_ms", library))}}
 
 
+def wide_entry(launches, rows, timed_rows, forced_rows):
+    """The "wide" field of the kernels line's conv3d_cs entry: the wide
+    launches of phase 4d's forward and the sums over its wide shapes (pack
+    and conv apart, their sum, plain, bound, cuDNN), the same sums at
+    WIDE_TIMED_ROI, and the largest error of every wide row (those forced
+    at other shapes included)."""
+    if len(rows) != launches:
+        raise AssertionError(f"{launches} wide launches, {len(rows)} such shapes")
+
+    def sums(rs):
+        return {k: sum(r[key] for r in rs) for k, key in (
+            ("pack_ms", "pack_ms"), ("kernel_ms", "kernel_ms"), ("ms", "ms"),
+            ("plain_ms", "plain_ms"), ("bound_ms", "bound_ms"), ("library_ms", "library_ms"))}
+
+    return {"launches": launches, "shapes": len(rows), "roi": list(WIDE_ROI),
+            "max_abs_err": max(r["max_abs_err"] for r in rows + timed_rows + forced_rows),
+            **sums(rows), "timed": {"roi": list(WIDE_TIMED_ROI), **sums(timed_rows)}}
+
+
 def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
                affine=False, force=None, chunk=16, device_time=False):
     """One conv3d_cs case against the plain version (batch-chunked so the
     f32 reference fits beside the full-batch tensors); on the packed path
     also the pack against its plain version (the padded slots), bit for
-    bit. ``force`` ("gather" or "narrow") runs that kernel whatever the
-    shape. Off the packed path, or with ``device_time`` (small calls, whose
+    bit. ``force`` ("wide" or "narrow") runs that kernel whatever the
+    shape ("wide": the pack and the packed conv's wide instance, path
+    "packed"); "instance" says which packed instance ran ("ring" or
+    "wide"). Off the packed path, or with ``device_time`` (small calls, whose
     host enqueueing outlasts the kernels), "kernel_ms", "pack_ms" and
     "library_ms" are device time (device_ms); "wrapper_ms" is the call's
     time with the host's. Returns a row."""
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        block_weights, conv3d_cs, conv3d_cs_gather, conv3d_cs_narrow, conv3d_cs_pack,
+        block_weights, conv3d_cs, conv3d_cs_narrow, conv3d_cs_pack,
         conv3d_cs_pack_reference, conv3d_cs_packed, conv3d_cs_path,
-        conv3d_cs_reference, conv3d_cs_resources, kernel_weights, narrow_band_rows,
-        packed_channels,
+        conv3d_cs_reference, conv3d_cs_resources, conv3d_cs_wide, kernel_weights,
+        narrow_band_rows, packed_channels, packed_wide,
     )
 
     dev = torch.device("cuda")
@@ -487,14 +523,21 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
         aff = (torch.rand((b, cin), generator=g, device=dev) + 0.5,
                torch.randn((b, cin), generator=g, device=dev) * 0.3)
     kw = dict(h=h, w=w, emit_stats=emit_stats, pair=pair, in_affine=aff)
-    path = force or conv3d_cs_path(c1, c2, w, cout)
-    conv = {None: conv3d_cs, "gather": conv3d_cs_gather, "narrow": conv3d_cs_narrow}[force]
+    path = {None: conv3d_cs_path(c1, c2, w, cout), "wide": "packed", "narrow": "narrow"}[force]
+    wide = force == "wide" or (path == "packed" and packed_wide(w))
+    conv = {None: conv3d_cs, "wide": conv3d_cs_wide, "narrow": conv3d_cs_narrow}[force]
     pk = dict(h=h, w=w, x2=None if pair is None else pair[0],
               bias2=None if pair is None else pair[2], in_affine=aff)
 
     out = conv(x, wt, None, **kw)
     torch.cuda.synchronize()
     got, st = out if emit_stats else (out, None)
+    relaunch_equal = None
+    if wide:  # its stats add the blocks' partials in a fixed order: the same bits again
+        again = conv(x, wt, None, **kw)
+        again_out, again_st = again if emit_stats else (again, None)
+        relaunch_equal = torch.equal(again_out, got) and (st is None or torch.equal(again_st, st))
+        del again, again_out, again_st
     ulps = err = st_ratio = 0.0
     plain_ms = pack_plain_ms = pack_err = 0.0
     pack_equal = None
@@ -539,7 +582,7 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
                                              padded=True))
         pack_ms = clock(lambda: conv3d_cs_pack(x, **pk))
         kernel_ms = clock(lambda: conv3d_cs_packed(xp, w_blk, None, cout=cout,
-                                                   emit_stats=emit_stats))
+                                                   emit_stats=emit_stats, wide=wide))
     del xp
 
     # yardsticks: one cuDNN bf16 conv of the same inputs, pre-laid-out NCDHW,
@@ -560,14 +603,16 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
     del xin
     bms, by = bound_ms(b, d, s, cin, cout, emit_stats)
     flops = 2.0 * 27 * cin * cout * b * d * s
-    regs, blocks_per_sm = conv3d_cs_resources(path, h, w, cin)
+    regs, blocks_per_sm = conv3d_cs_resources("wide" if wide else path, h, w, cin)
     sum_ms = kernel_ms + (pack_ms or 0.0)
     slots = packed_channels(c1, c2) if path == "packed" else None
-    row = dict(phase="kernel", card=card, case=name, path=path, b=b, d=d, h=h, w=w,
+    row = dict(phase="kernel", card=card, case=name, path=path,
+               instance=("wide" if wide else "ring") if path == "packed" else None,
+               b=b, d=d, h=h, w=w,
                band_rows=narrow_band_rows(cin, h, w) if path == "narrow" else None,
                c_in=cin, c_slots=slots, c_out=cout, pair=bool(c2), emit_stats=emit_stats,
                in_affine=affine, max_ulps=ulps, max_abs_err=err,
-               stats_tol_ratio=st_ratio, pack_equal=pack_equal,
+               stats_tol_ratio=st_ratio, pack_equal=pack_equal, relaunch_equal=relaunch_equal,
                pack_max_abs_err=pack_err if path == "packed" else None,
                kernel_ms=kernel_ms, pack_ms=pack_ms, ms=sum_ms, wrapper_ms=ms,
                plain_ms=plain_ms, pack_plain_ms=pack_plain_ms,
@@ -585,6 +630,8 @@ def check_conv(card, name, b, d, h, w, c1, c2, cout, *, emit_stats=True,
         raise AssertionError(f"conv3d_cs disagrees with its plain version: {row}")
     if path == "packed" and not pack_equal:
         raise AssertionError(f"conv3d_cs_pack differs from its plain version: {row}")
+    if relaunch_equal is False:
+        raise AssertionError(f"the wide instance gave other bits on a relaunch: {row}")
     return row
 
 
@@ -717,8 +764,8 @@ def profile_summary(prof, wall_s, top=12):
                 conv3d_cs_ms=conv_ms, conv3d_cs_pack_ms=pack_ms,
                 conv3d_cs_direct_ms=sum(r[0] for r in direct),
                 conv3d_cs_direct_launches=sum(r[1] for r in direct),
-                gather_kernel=[[r[2][:70], r[1]] for r in rows
-                               if "conv3d_cs_gather_kernel" in r[2]],
+                wide_kernel=[[r[2][:70], r[1]] for r in rows
+                               if "conv3d_cs_packed_wide_kernel" in r[2]],
                 narrow_kernel=[[r[2][:70], r[1]] for r in rows
                                if "conv3d_cs_narrow_kernel" in r[2]],
                 deconv2x_cs_ms=deconv_ms, library_transposed_conv=transposed,
@@ -865,7 +912,7 @@ def stream_phase(card, sd, dev):
         auto_batch_size, dense_patch_starts,
     )
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_packed, conv3d_cs_pack,
     )
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
     from delivr_cfos_tpu_torch.pipeline.stage02_inference import (
@@ -874,11 +921,11 @@ def stream_phase(card, sd, dev):
 
     def reset():
         conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
-        conv3d_cs_direct.launches = conv3d_cs_gather.launches = 0
+        conv3d_cs_direct.launches = conv3d_cs_packed.wide_launches = 0
 
     def counts():
         return (conv3d_cs.launches, conv3d_cs_pack.launches, deconv2x_cs.launches,
-                conv3d_cs_direct.launches, conv3d_cs_gather.launches)
+                conv3d_cs_direct.launches, conv3d_cs_packed.wide_launches)
 
     svol = make_volume(STREAM_VOLUME)
     z_starts = sorted({int(z) for z, _, _ in dense_patch_starts(STREAM_VOLUME, ROI, 0.5)})
@@ -946,7 +993,7 @@ def stream_phase(card, sd, dev):
               conv3d_cs_pack_launches=stream_pack, resume_conv3d_cs_pack_launches=res_pack,
               conv3d_cs_direct_launches=stream_counts[3],
               resume_conv3d_cs_direct_launches=res_counts[3],
-              conv3d_cs_gather_launches=stream_counts[4] + res_counts[4],
+              conv3d_cs_wide_launches=stream_counts[4] + res_counts[4],
               batch_stream=slab_batch, batch_memory=mem_batch,
               seconds_stream=sec_st, gvox_per_s_stream=s_vox / sec_st / 1e9,
               peak_gib_stream=peak_st, seconds_memory=sec_mem,
@@ -959,14 +1006,14 @@ def stream_phase(card, sd, dev):
               resumed=resumed))
     if stream_launches < 18:
         raise AssertionError("the streamed stage 2 launched no conv3d_cs")
-    # 18 convs (1 direct, none gathered), 17 packs and 4 deconvs per forward
+    # 18 convs (1 direct, none wide), 17 packs and 4 deconvs per forward
     # batch, the resume fewer
-    for conv, pack, deconv, direct, gathered in (stream_counts, res_counts):
+    for conv, pack, deconv, direct, wide in (stream_counts, res_counts):
         if (conv % 18 or deconv != 4 * (conv // 18) or pack != PACKED * (conv // 18)
-                or direct != conv // 18 or gathered):
+                or direct != conv // 18 or wide):
             raise AssertionError(
                 f"streamed stage 2: {deconv} deconv2x_cs, {pack} conv3d_cs_pack, "
-                f"{direct} direct and {gathered} gather launches for {conv} conv3d_cs")
+                f"{direct} direct and {wide} wide launches for {conv} conv3d_cs")
     if not 0 < res_deconv < stream_deconv:
         raise AssertionError("the resumed stream did not launch fewer deconv2x_cs")
     if not (ok_st and np.isfinite(sig_st).all() and bin_st.shape == STREAM_VOLUME):
@@ -989,7 +1036,7 @@ def packing_phase(card, sd, dev):
         pack_config, pack_params, pack_windows, unpack_logits,
     )
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_narrow, conv3d_cs_pack,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_narrow, conv3d_cs_pack,
         conv3d_cs_packed,
     )
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
@@ -1018,13 +1065,13 @@ def packing_phase(card, sd, dev):
         torch.cuda.synchronize()
         # the packed forward's launches: counts set to 0 just before
         conv3d_cs.launches = conv3d_cs_pack.launches = conv3d_cs_packed.launches = 0
-        conv3d_cs_direct.launches = conv3d_cs_gather.launches = deconv2x_cs.launches = 0
+        conv3d_cs_direct.launches = conv3d_cs_packed.wide_launches = deconv2x_cs.launches = 0
         conv3d_cs_narrow.launches = 0
         got = pk().float()
         torch.cuda.synchronize()
         counts = dict(conv3d_cs=conv3d_cs.launches, packed=conv3d_cs_packed.launches,
                       pack=conv3d_cs_pack.launches, direct=conv3d_cs_direct.launches,
-                      narrow=conv3d_cs_narrow.launches, gather=conv3d_cs_gather.launches,
+                      narrow=conv3d_cs_narrow.launches, wide=conv3d_cs_packed.wide_launches,
                       deconv2x_cs=deconv2x_cs.launches)
         ms_one = timed_ms(one) / PACK_WINDOWS
         ms_packed = timed_ms(pk) / PACK_WINDOWS
@@ -1084,13 +1131,13 @@ def packing_phase(card, sd, dev):
                             PACK_G, 0, pfast.features[0])
     if narrow_row["path"] != "narrow":
         raise AssertionError(f"the packed first conv took the {narrow_row['path']} kernel")
-    want = dict(conv3d_cs=18, packed=PACKED, pack=PACKED, direct=0, narrow=1, gather=0,
+    want = dict(conv3d_cs=18, packed=PACKED, pack=PACKED, direct=0, narrow=1, wide=0,
                 deconv2x_cs=4)
     if counts != want:
         raise AssertionError(f"the packed forward launched {counts}, not {want}")
-    if not prof_row["narrow_kernel"] or prof_row["gather_kernel"]:
+    if not prof_row["narrow_kernel"] or prof_row["wide_kernel"]:
         raise AssertionError("the traced packed forward did not run the narrow kernel, or ran "
-                             f"the gather one: {prof_row['narrow_kernel']} {prof_row['gather_kernel']}")
+                             f"the wide instance: {prof_row['narrow_kernel']} {prof_row['wide_kernel']}")
     if row["same_first_conv_differing_logits"]:
         raise AssertionError("the packed forward differs from the per-window model whose first "
                              f"conv takes the narrow kernel: {row}")
@@ -1112,20 +1159,21 @@ def padded_phase(card, dev):
     of 16, so the path rule sends them to the packed conv on channels padded
     to 16-slot K steps. Launches (counts set to 0 just before the forward,
     read just after) as the path rule gives them for the 18 conv shapes: 17
-    packed with 17 packs, 1 direct, no gather; logits against the f32 parity
-    forward of the same weights with phase 4's bound; then for each of the
-    8 padded shapes a "kernel" row of its route (pack and packed conv apart,
-    device time) and one of the gather kernel forced, and a
+    packed with 17 packs, none on the wide instance, 1 direct; logits
+    against the f32 parity forward of the same weights with phase 4's bound;
+    then for each of the 8 padded shapes a "kernel" row of its route (pack
+    and packed conv apart, device time) and one of the packed conv's wide
+    instance forced (the wide ring on the planes the ring takes), and a
     "padded_path_sum" line over the 8. Returns the counts, the route's rows
-    and the gather rows."""
+    and the wide instance's rows."""
     from delivr_cfos_tpu_torch.engine.sliding_window import dense_patch_starts
     from delivr_cfos_tpu_torch.models.basic_unet import (
         BasicUNetConfig, build_model, init_state_dict,
     )
     from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_narrow, conv3d_cs_pack,
-        conv3d_cs_packed, conv3d_cs_path, packed_channels,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_narrow, conv3d_cs_pack,
+        conv3d_cs_packed, conv3d_cs_path, packed_channels, packed_wide,
     )
 
     cfg = BasicUNetConfig(features=PADDED_FEATURES)
@@ -1135,11 +1183,11 @@ def padded_phase(card, dev):
     n_padded = sum(p == "packed" and packed_channels(c1, c2) != c1 + c2
                    for p, (_, _, c1, c2, _, _, _, _) in zip(paths, shapes))
     want = dict(conv3d_cs=18, pack=paths.count("packed"), padded=n_padded,
-                **{k: paths.count(k) for k in ("packed", "direct", "narrow", "gather")})
-    # 8 shapes leave the gather kernel; 6 of them write pad slots (24 + 24
-    # fills 48 slots)
+                wide=sum(p == "packed" and packed_wide(w) for p, (*_, w) in zip(paths, shapes)),
+                **{k: paths.count(k) for k in ("packed", "direct", "narrow")})
+    # 8 shapes on padded slots, 6 of them with pad slots (24 + 24 fills 48)
     if want != dict(conv3d_cs=18, pack=PACKED, padded=6, packed=PACKED, direct=1, narrow=0,
-                    gather=0):
+                    wide=0):
         raise AssertionError(f"the path rule sends the padded model's convs to {paths}")
     vol = make_volume()
     bright = [s for s in dense_patch_starts(VOLUME, ROI, 0.5)
@@ -1150,14 +1198,14 @@ def padded_phase(card, dev):
     xw = torch.from_numpy(wins.astype(np.float32))[..., None].to(dev)
     with torch.no_grad():
         conv3d_cs.launches = conv3d_cs_packed.launches = conv3d_cs_direct.launches = 0
-        conv3d_cs_narrow.launches = conv3d_cs_gather.launches = conv3d_cs_pack.launches = 0
+        conv3d_cs_narrow.launches = conv3d_cs_packed.wide_launches = conv3d_cs_pack.launches = 0
         conv3d_cs_pack.padded_launches = 0
         fast = apply_cs(model, xw).float()
         torch.cuda.synchronize()
         counts = dict(conv3d_cs=conv3d_cs.launches, pack=conv3d_cs_pack.launches,
                       padded=conv3d_cs_pack.padded_launches,
                       packed=conv3d_cs_packed.launches, direct=conv3d_cs_direct.launches,
-                      narrow=conv3d_cs_narrow.launches, gather=conv3d_cs_gather.launches)
+                      narrow=conv3d_cs_narrow.launches, wide=conv3d_cs_packed.wide_launches)
         parity = model(xw)
     dev_max = float((fast - parity).abs().max())
     scale = float(parity.abs().mean()) + 1e-3
@@ -1172,42 +1220,46 @@ def padded_phase(card, dev):
         raise AssertionError(f"the padded-path fast forward strays from parity: {row}")
     del model, xw, fast, parity
     # the route against its plain version at the shapes whose channels it
-    # pads, each beside the gather kernel that took them before
+    # pads, each beside the wide instance at the same shape
     b = int(wins.shape[0])
     padded = [(n, c1, c2, co, d, h, w) for n, _, c1, c2, co, d, h, w in shapes
               if conv3d_cs_path(c1, c2, w, co) == "packed" and (c1 % 16 or c2 % 16)]
     rows = [check_conv(card, f"padded_path/{n}", b, d, h, w, c1, c2, co, device_time=True)
             for n, c1, c2, co, d, h, w in padded]
-    gather_rows = [check_conv(card, f"padded_path/{n}/gather", b, d, h, w, c1, c2, co,
-                              force="gather")
-                   for n, c1, c2, co, d, h, w in padded]
+    wide_rows = [check_conv(card, f"padded_path/{n}/wide", b, d, h, w, c1, c2, co,
+                            force="wide", device_time=True)
+                 for n, c1, c2, co, d, h, w in padded]
     ms = sum(r["ms"] for r in rows)
     bound = sum(r["bound_ms"] for r in rows)
     emit(dict(phase="padded_path_sum", card=card, shapes=len(rows),
               pack_ms=sum(r["pack_ms"] for r in rows),
               kernel_ms=sum(r["kernel_ms"] for r in rows), ms=ms,
-              gather_ms=sum(r["kernel_ms"] for r in gather_rows),
+              wide_ms=sum(r["ms"] for r in wide_rows),
               library_ms=sum(r["library_ms"] for r in rows),
               plain_ms=sum(r["plain_ms"] for r in rows),
               bound_ms=bound, fraction_of_bound=bound / ms,
               below_library=ms < sum(r["library_ms"] for r in rows)))
-    return counts, rows, gather_rows
+    return counts, rows, wide_rows
 
 
 def wide_phase(card, sd, dev):
     """Phase 4d: the full-width fast forward on WIDE_WINDOWS seeded windows
     of WIDE_ROI, whose level-0 planes (1024 wide) are too wide for the
     packed conv's ring: the path rule sends its three level-0 convs with 32
-    or 64 channels in to the gather kernel, the first conv to the direct one
-    and the rest to the packed conv. Launches as the rule gives them (counts
-    set to 0 just before the forward, read just after), logits against the
-    f32 parity forward with phase 4's bound; then a "kernel" row for each
-    gather shape. Returns the counts and those rows."""
+    or 64 channels in to the pack and the packed conv's wide instance, the
+    first conv to the direct kernel and the rest to the ring. Launches as
+    the rule gives them (counts set to 0 just before the forward, read just
+    after: 3 wide), logits against the f32 parity forward with phase 4's
+    bound; then a "kernel" row for each wide shape at WIDE_ROI and at
+    WIDE_TIMED_ROI (pack bit for bit, the conv within one ULP and the same
+    bits on a relaunch, pack and conv device times apart, cuDNN, plain, the
+    bound) and a "wide_path_sum" line for each window. Returns the counts
+    and the rows at WIDE_ROI and at WIDE_TIMED_ROI."""
     from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig, build_model
     from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_narrow, conv3d_cs_pack,
-        conv3d_cs_packed, conv3d_cs_path,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_narrow, conv3d_cs_pack,
+        conv3d_cs_packed, conv3d_cs_path, packed_wide,
     )
 
     cfg = BasicUNetConfig()
@@ -1215,20 +1267,21 @@ def wide_phase(card, sd, dev):
     shapes = conv_shapes(cfg.features, WIDE_ROI)
     paths = [conv3d_cs_path(c1, c2, w, co) for _, _, c1, c2, co, _, _, w in shapes]
     want = dict(conv3d_cs=18, pack=paths.count("packed"),
-                **{k: paths.count(k) for k in ("packed", "direct", "narrow", "gather")})
-    if not want["gather"]:
-        raise AssertionError(f"no conv of the wide window takes the gather kernel: {paths}")
+                wide=sum(p == "packed" and packed_wide(w) for p, (*_, w) in zip(paths, shapes)),
+                **{k: paths.count(k) for k in ("packed", "direct", "narrow")})
+    if want != dict(conv3d_cs=18, pack=PACKED, wide=3, packed=PACKED, direct=1, narrow=0):
+        raise AssertionError(f"the path rule sends the wide window's convs to {paths}")
     rng = np.random.default_rng(SEED)
     xw = torch.from_numpy((rng.random((WIDE_WINDOWS, *WIDE_ROI, 1)) * 1000).astype(
         np.float32)).to(dev)
     with torch.no_grad():
         conv3d_cs.launches = conv3d_cs_packed.launches = conv3d_cs_direct.launches = 0
-        conv3d_cs_narrow.launches = conv3d_cs_gather.launches = conv3d_cs_pack.launches = 0
+        conv3d_cs_narrow.launches = conv3d_cs_packed.wide_launches = conv3d_cs_pack.launches = 0
         fast = apply_cs(model, xw).float()
         torch.cuda.synchronize()
         counts = dict(conv3d_cs=conv3d_cs.launches, pack=conv3d_cs_pack.launches,
-                      packed=conv3d_cs_packed.launches, direct=conv3d_cs_direct.launches,
-                      narrow=conv3d_cs_narrow.launches, gather=conv3d_cs_gather.launches)
+                      wide=conv3d_cs_packed.wide_launches, packed=conv3d_cs_packed.launches,
+                      direct=conv3d_cs_direct.launches, narrow=conv3d_cs_narrow.launches)
         parity = model(xw)
     dev_max = float((fast - parity).abs().max())
     scale = float(parity.abs().mean()) + 1e-3
@@ -1242,9 +1295,36 @@ def wide_phase(card, sd, dev):
     if not row["finite"] or dev_max / scale >= 0.5:
         raise AssertionError(f"the wide-window fast forward strays from parity: {row}")
     del model, xw, fast, parity
-    rows = [check_conv(card, f"wide_path/{n}", WIDE_WINDOWS, d, h, w, c1, c2, co)
-            for (n, _, c1, c2, co, d, h, w), path in zip(shapes, paths) if path == "gather"]
-    return counts, rows
+    torch.cuda.empty_cache()
+    return (counts, *(wide_rows(card, roi) for roi in (WIDE_ROI, WIDE_TIMED_ROI)))
+
+
+def wide_rows(card, roi):
+    """A "kernel" row for each conv of the full-width forward on
+    WIDE_WINDOWS windows of ``roi`` that the path rule sends to the packed
+    conv's wide instance (there must be 3, each the same bits on a
+    relaunch), device time, and their "wide_path_sum" line. Returns the
+    rows."""
+    from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig
+    from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs_path, packed_wide
+
+    rows = [check_conv(card, f"wide_path/{n}@{roi[2]}", WIDE_WINDOWS, d, h, w, c1, c2, co,
+                       device_time=True)
+            for n, _, c1, c2, co, d, h, w in conv_shapes(BasicUNetConfig().features, roi)
+            if conv3d_cs_path(c1, c2, w, co) == "packed" and packed_wide(w)]
+    if len(rows) != 3 or not all(r["instance"] == "wide" and r["relaunch_equal"]
+                                 for r in rows):
+        raise AssertionError(f"the wide shapes at {roi}: {rows}")
+    ms = sum(r["ms"] for r in rows)
+    bound = sum(r["bound_ms"] for r in rows)
+    library = sum(r["library_ms"] for r in rows)
+    emit(dict(phase="wide_path_sum", card=card, roi=list(roi), windows=WIDE_WINDOWS,
+              shapes=len(rows), pack_ms=sum(r["pack_ms"] for r in rows),
+              kernel_ms=sum(r["kernel_ms"] for r in rows), ms=ms, library_ms=library,
+              plain_ms=sum(r["plain_ms"] for r in rows), bound_ms=bound,
+              fraction_of_bound=bound / ms, below_library=ms < library))
+    torch.cuda.empty_cache()
+    return rows
 
 
 def zarr_phase(card, sd, dev):
@@ -1255,7 +1335,7 @@ def zarr_phase(card, sd, dev):
     from delivr_cfos_tpu_torch.engine import streaming
     from delivr_cfos_tpu_torch.models.basic_unet import build_model
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_packed, conv3d_cs_pack,
     )
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
     from delivr_cfos_tpu_torch.pipeline.stage02_inference import (
@@ -1302,7 +1382,7 @@ def zarr_phase(card, sd, dev):
             bins = np.empty(STREAM_VOLUME, np.uint8)
             logits = np.empty(STREAM_VOLUME, np.float32)
             conv3d_cs.launches = conv3d_cs_pack.launches = deconv2x_cs.launches = 0
-            conv3d_cs_direct.launches = conv3d_cs_gather.launches = 0
+            conv3d_cs_direct.launches = conv3d_cs_packed.wide_launches = 0
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
@@ -1314,12 +1394,12 @@ def zarr_phase(card, sd, dev):
                 seconds=seconds, peak=torch.cuda.max_memory_allocated() / 2**30,
                 bins=bins, logits=logits,
                 counts=(conv3d_cs.launches, conv3d_cs_pack.launches, deconv2x_cs.launches,
-                        conv3d_cs_direct.launches, conv3d_cs_gather.launches))
+                        conv3d_cs_direct.launches, conv3d_cs_packed.wide_launches))
         del model
     z, m = runs["zarr"], runs["memmap"]
     n_vox = int(np.prod(STREAM_VOLUME))
     same = bool(np.array_equal(z["logits"], m["logits"]) and np.array_equal(z["bins"], m["bins"]))
-    conv, pack, deconv, direct, gathered = m["counts"]
+    conv, pack, deconv, direct, wide = m["counts"]
     emit(dict(phase="zarr", card=card, volume=list(STREAM_VOLUME), chunks=list(ZARR_CHUNKS),
               compressor="zlib", store_mb=store_bytes / 1e6,
               volume_mb=n_vox * 2 / 1e6, write_s=write_s, slab_z_starts=k, batch=batch,
@@ -1332,10 +1412,10 @@ def zarr_phase(card, sd, dev):
               positives=int(z["bins"].sum()), bit_identical=same))
     if not same:
         raise AssertionError("the stream from the zarr store differs from the memmap's")
-    if (z["counts"] != m["counts"] or conv < 18 or conv % 18 or gathered
+    if (z["counts"] != m["counts"] or conv < 18 or conv % 18 or wide
             or direct != conv // 18 or pack != PACKED * direct or deconv != 4 * direct):
         raise AssertionError(f"zarr stream launches {z['counts']}, memmap {m['counts']}: "
-                             "not 18 conv3d_cs (1 direct, 0 gather), 17 packs and 4 "
+                             "not 18 conv3d_cs (1 direct, none wide), 17 packs and 4 "
                              "deconvs per forward batch in both")
     if not np.isfinite(z["logits"]).all():
         raise AssertionError("the zarr stream's logits are not finite")
@@ -1381,7 +1461,7 @@ def sharded_phase(card, sd, dev, bin_fast, bin_stream, sig_stream):
     from delivr_cfos_tpu_torch.models.basic_unet import build_model
     from delivr_cfos_tpu_torch.ops.connected_components import label_volume_host
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack, conv3d_cs_packed,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_pack, conv3d_cs_packed,
     )
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
     from delivr_cfos_tpu_torch.parallel import make_mesh, sharded_infer_volume
@@ -1393,12 +1473,12 @@ def sharded_phase(card, sd, dev, bin_fast, bin_stream, sig_stream):
 
     def reset():
         conv3d_cs.launches = conv3d_cs_packed.launches = conv3d_cs_direct.launches = 0
-        conv3d_cs_gather.launches = conv3d_cs_pack.launches = deconv2x_cs.launches = 0
+        conv3d_cs_packed.wide_launches = conv3d_cs_pack.launches = deconv2x_cs.launches = 0
         sharded_accumulate.halo_in_bytes = sharded_accumulate.halo_out_bytes = 0
 
     def counts():
         return (conv3d_cs.launches, conv3d_cs_packed.launches, conv3d_cs_direct.launches,
-                conv3d_cs_gather.launches, conv3d_cs_pack.launches, deconv2x_cs.launches)
+                conv3d_cs_packed.wide_launches, conv3d_cs_pack.launches, deconv2x_cs.launches)
 
     def per_batch(c, nb):
         return c == (18 * nb, PACKED * nb, nb, 0, PACKED * nb, 4 * nb)
@@ -1431,7 +1511,7 @@ def sharded_phase(card, sd, dev, bin_fast, bin_stream, sig_stream):
                        seconds=sec, gvox_per_s=n_vox / sec / 1e9, peak_gib=peak,
                        forward_batches=n_batches, kernel_launches=c[0],
                        conv3d_cs_packed_launches=c[1], conv3d_cs_direct_launches=c[2],
-                       conv3d_cs_gather_launches=c[3], conv3d_cs_pack_launches=c[4],
+                       conv3d_cs_wide_launches=c[3], conv3d_cs_pack_launches=c[4],
                        deconv2x_cs_launches=c[5], max_abs_logit_dev=dev_max,
                        logit_tol_ratio=ratio,
                        differing_voxels=int((bins != bin_fast).sum()),
@@ -1454,7 +1534,7 @@ def sharded_phase(card, sd, dev, bin_fast, bin_stream, sig_stream):
         emit(dict(prof_row, card=card, run="stage2 fast, 4-way one-card mesh"))
         del prof, model, single
         if (prof_row["library_conv"] or prof_row["library_transposed_conv"]
-                or prof_row["gather_kernel"] or not prof_row["conv3d_cs_direct_launches"]):
+                or prof_row["wide_kernel"] or not prof_row["conv3d_cs_direct_launches"]):
             raise AssertionError(f"the sharded stage 2 left the kernels: {prof_row}")
 
     # streamed: phase 10's memmap on the 4-way mesh, then a resume from slab 2
@@ -1692,7 +1772,7 @@ def stage1_phase(card, vol, sd, batch, dev):
     )
     from delivr_cfos_tpu_torch.native.build import native_available
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack, conv3d_cs_packed,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_pack, conv3d_cs_packed,
     )
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
     from delivr_cfos_tpu_torch.pipeline.stage01_downsample_mask import downsample_mask
@@ -1770,10 +1850,10 @@ def stage1_phase(card, vol, sd, batch, dev):
         masked = nii[0, 0]
         n_active, n_batches = forward_batches(masked, batch, dev)
         conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
-        conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_gather.launches = 0
+        conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_packed.wide_launches = 0
         sec_s2, peak_s2, bin_s2, sig_s2 = stage2(tmp, "fast_s1", sd)
         counts = (conv3d_cs.launches, conv3d_cs_packed.launches, conv3d_cs_direct.launches,
-                  conv3d_cs_gather.launches, conv3d_cs_pack.launches, deconv2x_cs.launches)
+                  conv3d_cs_packed.wide_launches, conv3d_cs_pack.launches, deconv2x_cs.launches)
         with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA,
@@ -1799,11 +1879,11 @@ def stage1_phase(card, vol, sd, batch, dev):
               chunk_voxels=int(p_card.size), chunk_voxels_differing=big_flips,
               chunk_max_abs_err=float(np.abs(p_card - p_cpu).max()),
               chunk_uint8_differing=int((big255[:32] != u8_cpu).sum())))
-    conv, packed, direct, gathered, pack, deconv = counts
+    conv, packed, direct, wide, pack, deconv = counts
     emit(dict(phase="stage1_stage2", card=card, volume=list(VOLUME), batch=batch,
               active_windows=n_active, forward_batches=n_batches, kernel_launches=conv,
               conv3d_cs_packed_launches=packed, conv3d_cs_direct_launches=direct,
-              conv3d_cs_gather_launches=gathered, conv3d_cs_pack_launches=pack,
+              conv3d_cs_wide_launches=wide, conv3d_cs_pack_launches=pack,
               deconv2x_cs_launches=deconv, seconds=sec_s2,
               gvox_per_s=n_vox / sec_s2 / 1e9, peak_gib=peak_s2,
               positives=int(bin_s2.sum()), library_conv=s1_profile["library_conv"]))
@@ -1816,7 +1896,7 @@ def stage1_phase(card, vol, sd, batch, dev):
         raise AssertionError("stage 1's masked volume is empty or not raw × mask_us")
     if big_flips > MASK_FLIPS * p_card.size or not np.isfinite(p_card).all():
         raise AssertionError(f"{big_flips} probabilities of the first chunk differ from the CPU")
-    if n_batches == 0 or (conv, packed, direct, gathered, pack, deconv) != (
+    if n_batches == 0 or (conv, packed, direct, wide, pack, deconv) != (
             18 * n_batches, PACKED * n_batches, n_batches, 0, PACKED * n_batches,
             4 * n_batches):
         raise AssertionError(f"stage 2 on stage 1's output: launches {counts} for "
@@ -2449,7 +2529,7 @@ def pipeline_phase(card, sd, dev, keep, warped, batch):
     streamed brain, each held to the CPU."""
     from delivr_cfos_tpu_torch.config import PipelineConfig
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack, conv3d_cs_packed,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_pack, conv3d_cs_packed,
     )
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
     from delivr_cfos_tpu_torch.pipeline.runner import run_pipeline
@@ -2510,16 +2590,16 @@ def pipeline_phase(card, sd, dev, keep, warped, batch):
                                   **{f: f == "BLOB_DETECTION" for f in STAGE_FLAGS})
         run_cfg["blob_detection"]["input_location"] = os.path.join(tmp, "s2in", "in")
         conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
-        conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_gather.launches = 0
+        conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_packed.wide_launches = 0
         t0 = time.perf_counter()
         timer = run_pipeline(PipelineConfig.from_dict(run_cfg))
         sec_run = time.perf_counter() - t0
         counts = (conv3d_cs.launches, conv3d_cs_packed.launches, conv3d_cs_direct.launches,
-                  conv3d_cs_gather.launches, conv3d_cs_pack.launches, deconv2x_cs.launches)
+                  conv3d_cs_packed.wide_launches, conv3d_cs_pack.launches, deconv2x_cs.launches)
         emit(dict(phase="pipeline_runner", card=card, volume=list(VOLUME), batch=batch,
                   active_windows=n_active, forward_batches=n_batches,
                   kernel_launches=counts[0], conv3d_cs_packed_launches=counts[1],
-                  conv3d_cs_direct_launches=counts[2], conv3d_cs_gather_launches=counts[3],
+                  conv3d_cs_direct_launches=counts[2], conv3d_cs_wide_launches=counts[3],
                   conv3d_cs_pack_launches=counts[4], deconv2x_cs_launches=counts[5],
                   seconds=sec_run, spans=timer.spans))
         if n_batches == 0 or counts != (18 * n_batches, PACKED * n_batches, n_batches, 0,
@@ -2537,6 +2617,12 @@ TRAIN_FULL = dict(batch=2, crop=ROI, warm=2, steps=10)  # part (a)
 TRAIN_RECIPE = dict(lr=1e-2, steps=150, batch=4, crop=(32, 32, 32), resume_at=75)  # bench.py:203-255
 TRAIN_PATCHES = 6  # seeded 100³ patch pairs in the reference's raw/ and gt/ layout
 NIFTI_BLOBS = 300  # bright blobs in phase (d)'s (192, 480, 384) volume
+# the most max |σ(fast) − σ(parity)| over phase (d)'s volume may be with (c)'s
+# trained weights, which differ from run to run (cuDNN's backward is not
+# deterministic): twice the largest of fifteen trainings' margins, 0.0020 to
+# 0.0177, that nifti_margin_runs.py measured with the fast path this check was
+# written against (NVIDIA H100 80GB HBM3 at 700 W)
+NIFTI_MARGIN_MAX = 0.036
 SHARDED_TRAIN = dict(mesh={"dp": 2, "sp": 2}, shape=(2, 64, 96, 96, 1))  # part (e)
 
 
@@ -2634,6 +2720,46 @@ def grad_error(model, ref, which=lambda name: True) -> float:
     return out
 
 
+def nifti_fast_parity(dev, weights, vol, centres, bin_nifti):
+    """Phase (d)'s fast-vs-parity contract for ``bin_nifti``, the binaries
+    run_inference_from_nifti gave on the card with ``weights`` on ``vol``:
+    the fast logits again through infer_volume (the function it runs) and
+    the parity ones, as sigmoids; the margin max |σ(fast) − σ(parity)|, the
+    voxels that flip and whether each lies within the margin of the cut
+    (phase 6's test), stage-3 cells of both and the share of ``centres``
+    each finds. Returns a dict."""
+    from delivr_cfos_tpu_torch.engine.sliding_window import SlidingWindowConfig, infer_volume
+    from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig, build_model
+    from delivr_cfos_tpu_torch.models.convert import load_weights
+    from delivr_cfos_tpu_torch.ops.connected_components import label_volume_host
+
+    sd = load_weights(weights)
+    sig, bins, secs = {}, {}, {}
+    for mode in ("fast", "parity"):
+        cfg = BasicUNetConfig(precision=mode)
+        t0 = time.perf_counter()
+        logits, b = infer_volume(build_model(sd, cfg, dev), vol, SlidingWindowConfig(roi=ROI),
+                                 cfg)
+        secs[mode] = time.perf_counter() - t0
+        sig[mode] = torch.sigmoid(logits.float())
+        bins[mode] = b.cpu().numpy()
+        del logits
+    margin = float((sig["fast"] - sig["parity"]).abs().max())
+    flipped = torch.from_numpy(bins["fast"] != bins["parity"]).to(dev)
+    near = (sig["parity"][flipped] - 0.5).abs()
+    cells = {m: int(label_volume_host(b)[1]) for m, b in bins.items()}
+    found = {m: float(np.mean([b[tuple(c)] for c in centres])) for m, b in bins.items()}
+    return dict(sigmoid_margin=margin, margin_bound=NIFTI_MARGIN_MAX,
+                flipped_voxels=int(flipped.sum()),
+                flipped_max_distance_to_cut=float(near.max()) if near.numel() else 0.0,
+                flips_inside_margin=bool((near <= margin + 1e-6).all()),
+                positives_fast=int(bins["fast"].sum()), positives_parity=int(bins["parity"].sum()),
+                fast_equals_nifti_run=bool(np.array_equal(bins["fast"], bin_nifti)),
+                stage3_cells_fast=cells["fast"], stage3_cells_parity=cells["parity"],
+                blob_centres_found_fast=found["fast"], blob_centres_found_parity=found["parity"],
+                seconds_fast=secs["fast"], seconds_parity=secs["parity"])
+
+
 def train_phase(card, dev, batch):
     """Phase 13b: training. (a) Adam steps of the full-width parity
     BasicUNet at the inference window; (b) the card against the CPU at the
@@ -2643,12 +2769,9 @@ def train_phase(card, dev, batch):
     names the card four times against one device."""
     import copy
 
-    from delivr_cfos_tpu_torch.engine.sliding_window import SlidingWindowConfig, infer_volume
-    from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig, build_model
-    from delivr_cfos_tpu_torch.models.convert import load_weights
-    from delivr_cfos_tpu_torch.ops.connected_components import label_volume_host
+    from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack, conv3d_cs_packed,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_pack, conv3d_cs_packed,
     )
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
     from delivr_cfos_tpu_torch.parallel.mesh import make_mesh
@@ -2787,7 +2910,8 @@ def train_phase(card, dev, batch):
         write_nifti(nii, np.transpose(nifti_vol, (1, 2, 0)))  # (z, y, x) → (y, x, z)
         n_active, n_batches = forward_batches(nifti_vol, batch, dev)
         conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
-        conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_gather.launches = 0
+        conv3d_cs_packed.launches = conv3d_cs_direct.launches = 0
+        conv3d_cs_packed.wide_launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
@@ -2796,35 +2920,20 @@ def train_phase(card, dev, batch):
                                                 window=ROI)
         sec_fast = time.perf_counter() - t0
         counts = (conv3d_cs.launches, conv3d_cs_packed.launches, conv3d_cs_direct.launches,
-                  conv3d_cs_gather.launches, conv3d_cs_pack.launches, deconv2x_cs.launches)
+                  conv3d_cs_packed.wide_launches, conv3d_cs_pack.launches,
+                  deconv2x_cs.launches)
         prof_d = profile_summary(prof, sec_fast)
         del prof
         on_disk = np.load(os.path.join(tmp, "fast.npy"))
-        sd = load_weights(weights)
-        par_cfg = BasicUNetConfig(precision="parity")
-        t0 = time.perf_counter()
-        logits_par, bin_par = infer_volume(build_model(sd, par_cfg, dev), nifti_vol,
-                                           SlidingWindowConfig(roi=ROI), par_cfg)
-        sec_par = time.perf_counter() - t0
-        band = (logits_par.abs() <= BAND).cpu().numpy()
-        bin_par = bin_par.cpu().numpy()
-        del logits_par
-        differ = bin_fast != bin_par
-        n_fast, n_par = label_volume_host(bin_fast)[1], label_volume_host(bin_par)[1]
-        found = float(np.mean([bin_fast[tuple(c)] for c in nifti_centres]))
+        contract = nifti_fast_parity(dev, weights, nifti_vol, nifti_centres, bin_fast)
         emit(dict(phase="train", part="d_nifti_inference", card=card, volume=list(VOLUME),
                   blobs=NIFTI_BLOBS, batch=batch, active_windows=n_active,
                   forward_batches=n_batches, conv3d_cs_launches=counts[0],
                   conv3d_cs_packed_launches=counts[1], conv3d_cs_direct_launches=counts[2],
-                  conv3d_cs_gather_launches=counts[3], conv3d_cs_pack_launches=counts[4],
+                  conv3d_cs_wide_launches=counts[3], conv3d_cs_pack_launches=counts[4],
                   deconv2x_cs_launches=counts[5], library_conv=prof_d["library_conv"],
                   library_transposed_conv=prof_d["library_transposed_conv"],
-                  seconds_fast_traced=sec_fast, seconds_parity=sec_par,
-                  positives_fast=int(bin_fast.sum()), positives_parity=int(bin_par.sum()),
-                  differing_voxels=int(differ.sum()), voxels_in_band=int(band.sum()),
-                  equal_outside_band=bool((~differ | band).all()),
-                  stage3_cells_fast=int(n_fast), stage3_cells_parity=int(n_par),
-                  blob_centres_found=found))
+                  seconds_fast_traced=sec_fast, **contract))
         if n_batches == 0 or counts != (18 * n_batches, PACKED * n_batches, n_batches, 0,
                                         PACKED * n_batches, 4 * n_batches):
             raise AssertionError(f"NIfTI inference: launches {counts} for {n_batches} "
@@ -2832,10 +2941,20 @@ def train_phase(card, dev, batch):
         if prof_d["library_conv"] or prof_d["library_transposed_conv"]:
             raise AssertionError("NIfTI inference ran a library convolution")
         if not (np.array_equal(on_disk, bin_fast) and bin_fast.shape == VOLUME
-                and (~differ | band).all()):
+                and contract["fast_equals_nifti_run"]):
             raise AssertionError("NIfTI inference: binaries.npy differs from the returned "
-                                 "binaries or from parity outside the logit band")
-    del bin_fast, bin_par, band, differ, on_disk
+                                 "binaries, or those from infer_volume's fast binaries")
+        cells_apart = abs(contract["stage3_cells_fast"] - contract["stage3_cells_parity"])
+        if not (cells_apart <= contract["flipped_voxels"]
+                and contract["blob_centres_found_fast"] == 1.0
+                and contract["blob_centres_found_parity"] == 1.0
+                and contract["flips_inside_margin"]
+                and contract["sigmoid_margin"] <= NIFTI_MARGIN_MAX):
+            raise AssertionError("NIfTI inference: fast and parity part beyond the contract "
+                                 "(blob centres, flips within a margin of at most "
+                                 f"{NIFTI_MARGIN_MAX}, cells apart by no more than the "
+                                 f"flips): {contract}")
+    del bin_fast, on_disk
     torch.cuda.empty_cache()
 
     # (e) the dp×sp step on a mesh naming the card four times, against one device
@@ -2890,7 +3009,7 @@ def main() -> int:
     from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
     from delivr_cfos_tpu_torch.ops import _build
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
-        conv3d_cs, conv3d_cs_direct, conv3d_cs_gather, conv3d_cs_pack, conv3d_cs_packed,
+        conv3d_cs, conv3d_cs_direct, conv3d_cs_pack, conv3d_cs_packed,
         conv3d_cs_path,
     )
     from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
@@ -2922,17 +3041,18 @@ def main() -> int:
     extra = [
         check_conv(smi, "conv_0.1/no_stats", batch, 96, 96, 64, 32, 0, 32, emit_stats=False),
         check_conv(smi, "down_1.1/in_affine", batch, 48, 48, 32, 32, 0, 32, affine=True),
-        # the first conv's kernel before the direct one, timed in the same run
-        check_conv(smi, "conv_0.0/gather", batch, d, h, w, c1, c2, co, force="gather"),
+        # the packed conv's wide instance at the first conv's shape (C_in = 1
+        # in 16 slots), timed in the same run
+        check_conv(smi, "conv_0.0/wide", batch, d, h, w, c1, c2, co, force="wide"),
         # the narrow kernel at the first conv's shape: a yardstick beside the
         # direct kernel (the path rule for C_in = 1 stays)
         check_conv(smi, "conv_0.0/narrow", batch, d, h, w, c1, c2, co, force="narrow"),
     ]
-    # the first convs of packed models (phase 4b): G = 2 on its gather kernel
-    # before the narrow one, and G = 4, both timed in this run
+    # the first convs of packed models (phase 4b): G = 2 on the wide
+    # instance beside its narrow kernel, and G = 4, both timed in this run
     narrow_rows = [
-        check_conv(smi, "packed/conv_0.0/gather", PACK_WINDOWS // PACK_G, d, h, w,
-                   PACK_G, 0, PACK_G * co, force="gather"),
+        check_conv(smi, "packed/conv_0.0/wide", PACK_WINDOWS // PACK_G, d, h, w,
+                   PACK_G, 0, PACK_G * co, force="wide"),
         check_conv(smi, "g4/conv_0.0", PACK_WINDOWS // 4, d, h, w, 4, 0, 4 * co),
     ]
     if narrow_rows[1]["path"] != "narrow":
@@ -2980,11 +3100,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- 4c. a model whose 24-channel convs take padded slots ---------------
-    padded_counts, padded_rows, padded_gather_rows = padded_phase(smi, dev)
+    padded_counts, padded_rows, padded_wide_rows = padded_phase(smi, dev)
     torch.cuda.empty_cache()
 
-    # --- 4d. windows too wide for the packed ring: the gather kernel --------
-    wide_counts, wide_rows = wide_phase(smi, sd, dev)
+    # --- 4d. windows too wide for the packed ring: its wide instance --------
+    wide_counts, wide_rows, wide_timed_rows = wide_phase(smi, sd, dev)
     torch.cuda.empty_cache()
 
     # --- 5. stage 1, and stage 2 on its output ------------------------------
@@ -2998,13 +3118,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         write_brain(tmp, vol)
         conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
-        conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_gather.launches = 0
+        conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_packed.wide_launches = 0
         conv3d_cs_pack.padded_launches = 0
         sec_fast, peak_fast, bin_fast, sig_fast = stage2(tmp, "fast", sd)
         launches, deconv_launches = conv3d_cs.launches, deconv2x_cs.launches
         pack_launches, pack_padded = conv3d_cs_pack.launches, conv3d_cs_pack.padded_launches
         packed_launches, direct_launches = conv3d_cs_packed.launches, conv3d_cs_direct.launches
-        gather_launches = conv3d_cs_gather.launches
+        wide_launches = conv3d_cs_packed.wide_launches
         sec_fast_warm, _, _, _ = stage2(tmp, "fast_warm", sd)
         sec_parity, peak_par, bin_par, sig_par = stage2(tmp, "parity", sd, "parity")
 
@@ -3033,7 +3153,7 @@ def main() -> int:
               forward_batches=n_batches, kernel_launches=launches,
               conv3d_cs_packed_launches=packed_launches,
               conv3d_cs_direct_launches=direct_launches,
-              conv3d_cs_gather_launches=gather_launches,
+              conv3d_cs_wide_launches=wide_launches,
               conv3d_cs_pack_launches=pack_launches,
               conv3d_cs_pack_padded_launches=pack_padded,
               deconv2x_cs_launches=deconv_launches,
@@ -3048,18 +3168,19 @@ def main() -> int:
     if launches != 18 * n_batches or pack_launches != PACKED * n_batches:
         raise AssertionError(f"{launches} conv3d_cs and {pack_launches} conv3d_cs_pack "
                              f"launches for {n_batches} forward batches")
-    if (packed_launches, direct_launches, gather_launches) != (PACKED * n_batches,
-                                                               n_batches, 0):
-        raise AssertionError(f"{packed_launches} packed, {direct_launches} direct and "
-                             f"{gather_launches} gather conv launches for {n_batches} "
+    if (packed_launches, direct_launches, wide_launches) != (PACKED * n_batches,
+                                                             n_batches, 0):
+        raise AssertionError(f"{packed_launches} packed ({wide_launches} wide) and "
+                             f"{direct_launches} direct conv launches for {n_batches} "
                              "forward batches")
     if deconv_launches != 4 * n_batches:
         raise AssertionError(
             f"{deconv_launches} deconv2x_cs launches != 4 × {n_batches} batches")
-    if (fast_profile["gather_kernel"] or fast_profile["narrow_kernel"]
+    if (fast_profile["wide_kernel"] or fast_profile["narrow_kernel"]
             or not fast_profile["conv3d_cs_direct_launches"]):
-        raise AssertionError("the fast stage 2 ran the gather or narrow kernel, or not the "
-                             f"direct one: {fast_profile['gather_kernel']} "
+        raise AssertionError("the fast stage 2 ran the wide instance or the narrow kernel, "
+                             "or not the direct one: "
+                             f"{fast_profile['wide_kernel']} "
                              f"{fast_profile['narrow_kernel']}")
     if fast_profile["library_conv"]:
         raise AssertionError("the fast stage 2 ran a library convolution: "
@@ -3212,6 +3333,11 @@ def main() -> int:
         # pack that wrote them), the conv kernel alone over those shapes
         "padded": padded_entry(padded_counts["padded"], padded_rows, "kernel_ms",
                                "plain_ms", "bound_ms", "library_ms"),
+        # phase 4d's forward: its convs on the wide instance, pack + conv
+        # summed over those shapes (the error over every wide row)
+        "wide": wide_entry(wide_counts["wide"], wide_rows, wide_timed_rows,
+                           [r for r in extra + narrow_rows + padded_wide_rows
+                            if r["instance"] == "wide"]),
     }, {
         "name": "conv3d_cs_direct",
         "route": "cuda",
@@ -3240,22 +3366,6 @@ def main() -> int:
         "bound_ms": narrow_row["bound_ms"],
         "bound_by": narrow_row["bound_by"],
         "library_ms": narrow_row["library_ms"],
-    }, {
-        "name": "conv3d_cs_gather",
-        "route": "cuda",
-        "source": "delivr_cfos_tpu_torch/csrc/conv3d_cs.cu",
-        # the TPU kernel on planes too wide for the packed ring
-        "replaces": "delivr_cfos_tpu/ops/pallas/conv3d_cs.py:374",
-        # phase 4d's forward: the sum over its gather shapes
-        "launches": wide_counts["gather"],
-        "max_abs_err": max(r["max_abs_err"] for r in wide_rows + padded_gather_rows
-                           + narrow_rows[:1]),
-        "ms": sum(r["kernel_ms"] for r in wide_rows),
-        "plain_ms": sum(r["plain_ms"] for r in wide_rows),
-        "bound_ms": sum(r["bound_ms"] for r in wide_rows),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in wide_rows)
-        else "operations",
-        "library_ms": sum(r["library_ms"] for r in wide_rows),
     }, {
         "name": "conv3d_cs_pack",
         "route": "cuda",

@@ -53,8 +53,10 @@
 //   bf16) so ldmatrix's eight 16-byte rows fall in distinct banks. Virtual
 //   columns c = W, W + 1 are computed and dropped (3 % extra work at W = 64);
 //   the input rows they read, and those of rows past the plane, feed only
-//   dropped rows, so xp needs only a tail of TM voxels past its end, which
-//   the wrapper allocates.
+//   dropped rows, so xp needs only a tail of TM + 1 voxels past its end
+//   (the last tile starts at most at virtual voxel H (W + 2) - 1, so its
+//   dz = 2 span reaches voxel TM past the end), which the wrapper
+//   allocates.
 //   Shared memory per stage: (TM + 2 (W + 2) + 2) * 24 * 2 bytes of input
 //   and 9 * 16 * 40 * 2 = 11520 of weights: at TM = 256 and W = 64,
 //   30240 bytes, 90720 for the ring of 3, so 2 blocks of 256 threads fit an
@@ -135,47 +137,57 @@
 //   times the bytes. Against that, each (dz, 16-slot) span is one strided
 //   16-byte copy serving all 9 (dy, dx) taps, where gathering the im2col tile
 //   element by element ran at 0.005 of the bound.
-// - conv3d_cs_gather_kernel (what is left: planes too wide for the packed
-//   ring, W > 556 at 256-row tiles, whose 3 stages would pass the 232,448
-//   bytes of shared memory a block may opt into): per chunk of 32 K columns,
-//   which cross tap boundaries so K = 27 * C_in is not padded, the block
-//   gathers the im2col tile straight from global memory and runs
-//   nvcuda::wmma.
+// - conv3d_cs_packed_wide_kernel (planes wider than the packed ring: at
+//   256-row tiles W > 556, where 3 stages of the span above would pass the
+//   232,448 bytes of shared memory a block may opt into; on the TPU the same
+//   kernel, whose programs _auto_planes sizes to VMEM): the same implicit
+//   GEMM on the same xp and weights, with tiles that do not grow with W:
+//   WIDE_ROWS x WIDE_COLS = 4 x 64 outputs of one plane, one warp's 32 rows
+//   in one tile row. A stage, (dz, 16 channel slots) as above, is the 6 x 66
+//   voxels of padded plane d + dz around the tile, 6 rows of 66 voxels
+//   copied with the same 16-byte cp.async (those past the padded plane's
+//   edge, which feed only dropped outputs of a ragged tile, are not copied,
+//   so nothing is read past xp's end), and its 9 (dy, dx) taps are offsets
+//   dy * 66 + dx into it: (396 * 24 + 9 * 16 * 40) * 2 = 30528 bytes a
+//   stage, 91584 for the ring of 3 whatever W is (the plane instance's at
+//   W = 64 is 90720), and 2 blocks of 256 threads an SM. A tap moves 44
+//   span voxels through shared memory, as the plane instance does at
+//   W = 64. The design it replaced, a stage of one (dz, dy) row span of
+//   TM + 2 voxels serving 3 dx taps (86 voxels a tap), was measured on the
+//   H100 (conv3d_cs_wide_variants.py): with its copies dropped a level-0
+//   conv at (64, 96, 640) took 1.39 ms, with its MMAs dropped 2.30, whole
+//   2.54: the copies into shared memory, not the tensor cores, bound it.
+//   One plane's tiles are spread over blocks: the grid is (C_out tiles,
+//   tile groups, D * B), the groups of consecutive tiles sized by
+//   ops/conv3d_cs.py wide_tile_groups to the fewest waves of 2 blocks on the
+//   132 SMs times a block's stages (at least one wave where there are tiles
+//   enough; one block a plane gave 32 blocks at 2 windows of (16, 16,
+//   1024)). Each block reduces its (sum, sum of squares) as above and writes
+//   them in f32 to a scratch buffer; conv3d_cs_stats_sum_kernel then adds a
+//   plane's partials in group order. Blocks run in no order and nothing
+//   carries between them: the same bits on every launch.
 //
-// The packed, direct and gather kernels run one block per (C_out tile of 32,
-// z-plane d, batch b), the narrow kernel one block per (d, b) for all of
-// C_out, each walking its whole H*W plane in a fixed order, so the plane's
-// stats are reduced inside the block in a fixed order: no atomics, no second
-// pass, the same bits on every run (a TPU grid runs in order, Hopper blocks
-// do not).
+// The packed, direct and narrow kernels walk a whole H*W plane in one block
+// in a fixed order (one block per (C_out tile of 32, z-plane d, batch b); the
+// narrow kernel per (d, b) for all of C_out), so the plane's stats are
+// reduced inside the block in a fixed order: no atomics, no second pass, the
+// same bits on every run (a TPU grid runs in order, Hopper blocks do not).
+// The wide instance's second pass keeps that order across its blocks.
 //
 // Left for later: wgmma and TMA on xp, multi-plane tiles for the small planes
 // of levels 3-4, wider N tiles (and, for the padded shapes, an N tile of 24
 // or 48 channels and more blocks at a few windows); for the narrow kernel,
 // more warps in flight (its 113 registers allow 2 blocks of 256 threads an
-// SM) and an epilogue of fewer instructions; a redesign of the gather kernel
-// for planes wider than the packed ring (a ring of row bands), which no
-// model of the repository reaches.
+// SM) and an epilogue of fewer instructions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stddef.h>
 #include <stdint.h>
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int TN = 32;        // output channels per block (GEMM columns)
-// gather path
-constexpr int TM = 128;       // output voxels per tile (GEMM rows)
-constexpr int THREADS = 256;  // 8 warps; warp w owns tile rows [16w, 16w + 16)
-constexpr int LDC = TM + 4;   // C col-major: C[m, n] at c_s[n * LDC + m]
-constexpr int NJ = TN / 2;    // output channels per thread in the epilogue
-constexpr int TK = 32;        // K per shared-memory stage
-constexpr int LDA = TM + 8;   // A col-major: A[m, k] at a_s[k * LDA + m]
-constexpr int LDB = TN + 8;   // B row-major: B[k, n] at b_s[k * LDB + n]
 // packed path
 constexpr int PCC = 16;       // input channels per stage
 constexpr int STAGES = 3;     // ring depth
@@ -184,6 +196,8 @@ constexpr int MI = WM / 16;   // 16-row mma blocks a warp
 constexpr int LDX = PCC + 8;  // span row: one voxel's 16 channels, padded
 constexpr int LDP = TN + 8;   // weight row: one K row's 32 output channels
 constexpr int W_STAGE = 9 * PCC * LDP;  // bf16 of one stage's weights
+constexpr int WIDE_TM = 256;            // tile rows of the wide instance
+constexpr int STATS_THREADS = 256;      // the wide instance's stats pass
 constexpr int PACK_THREADS = 256;
 // direct path
 constexpr int DIRECT_THREADS = 256;  // 8 warps: warp w holds channel group w & 3
@@ -212,8 +226,6 @@ struct Args {
   int B, D, C1, C2, Cout, H, W;
   int Cp;  // the pack's channel slots (packed_channels(C1, C2))
 };
-
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 // mish as PyTorch computes v * tanh(softplus(v)) in f32 (softplus with its
 // threshold 20), so that the prologue gives the plain version's bits.
@@ -410,32 +422,62 @@ struct PackedArgs {
   const __nv_bfloat16* w;   // (ceil(Cout / TN), 27 * Cin, TN), zero-padded
   const float* bias;
   __nv_bfloat16* out;
-  float* stats;
+  float* stats;  // (B, D, 2, Cout); the wide instance's (B * D, groups, 2, Cout)
   int B, D, Cin, Cout, H, W;
+  int tiles_per_block;  // the wide instance's tiles a block (the last group's fewer)
 };
 
 __host__ __device__ constexpr int packed_stage_elems(int tm, int W) {
   return (tm + 2 * (W + 2) + 2) * LDX + W_STAGE;
 }
+// The wide instance's tiles: WIDE_ROWS rows x WIDE_COLS columns of a plane.
+// A stage is the (WIDE_ROWS + 2) x (WIDE_COLS + 2) voxels of padded plane
+// d + dz around the tile, 16 channel slots each, and the 9 (dy, dx) taps'
+// weights.
+constexpr int WIDE_COLS = 64;
+constexpr int WIDE_ROWS = WIDE_TM / WIDE_COLS;
+constexpr int WIDE_SPAN_COLS = WIDE_COLS + 2;
+__host__ __device__ constexpr int wide_stage_elems() {
+  return (WIDE_ROWS + 2) * WIDE_SPAN_COLS * LDX + W_STAGE;
+}
 
-template <int TMP>
-__global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(PackedArgs p) {
+// The packed conv of one block: tiles of TMP outputs, a stage (dz, 16-slot
+// chunk) serving the 9 (dy, dx) taps. WIDE = false: one block a (C_out tile,
+// plane d, batch b) walks the plane's tiles of TMP consecutive virtual
+// voxels, whose span is one contiguous run of xp. WIDE = true: one block a
+// (C_out tile, tile group, plane) walks its group's tiles of WIDE_ROWS x
+// WIDE_COLS outputs, whose span is WIDE_ROWS + 2 runs of WIDE_SPAN_COLS
+// voxels, and writes its stats as the block's partials.
+template <int TMP, bool WIDE>
+__device__ __forceinline__ void packed_conv(const PackedArgs& p) {
   constexpr int NW = TMP / WM;
   extern __shared__ __align__(128) unsigned char smem[];
   const int WP = p.W + 2;
   const int P = (p.H + 2) * WP;
-  const int NS = TMP + 2 * WP + 2;
-  const int stage_elems = packed_stage_elems(TMP, p.W);
+  const int NS = WIDE ? (WIDE_ROWS + 2) * WIDE_SPAN_COLS : TMP + 2 * WP + 2;
+  const int stage_elems = WIDE ? wide_stage_elems() : packed_stage_elems(TMP, p.W);
+  const int SR = WIDE ? WIDE_SPAN_COLS : WP;  // span row: tap dy's offset
   const int cin = p.Cin;
   const int nch = cin / PCC;
   const int KI = 3 * nch;  // stages per tile: (dz, channel chunk)
   const int V = p.H * WP;  // virtual outputs of the plane
-  const int total = (V + TMP - 1) / TMP * KI;
+  const int strips = (p.W + WIDE_COLS - 1) / WIDE_COLS;
 
   const int nt = blockIdx.x;
   const int n0 = nt * TN;
-  const int d = blockIdx.y;
-  const int b = blockIdx.z;
+  int d, b, t0, tiles;
+  if constexpr (WIDE) {
+    d = blockIdx.z % p.D;
+    b = blockIdx.z / p.D;
+    t0 = blockIdx.y * p.tiles_per_block;
+    tiles = min(p.tiles_per_block, (p.H + WIDE_ROWS - 1) / WIDE_ROWS * strips - t0);
+  } else {
+    d = blockIdx.y;
+    b = blockIdx.z;
+    t0 = 0;
+    tiles = (V + TMP - 1) / TMP;
+  }
+  const int total = tiles * KI;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -446,17 +488,36 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
   const uint32_t smem0 = (uint32_t)__cvta_generic_to_shared(smem);
 
   auto load = [&](int it) {
-    const int t = it / KI;
-    const int k = it - t * KI;
+    const int t = t0 + it / KI;
+    const int k = it - (it / KI) * KI;
     const int dz = k / nch;
     const int c0 = (k - dz * nch) * PCC;
     const uint32_t a_s = smem0 + (uint32_t)((it % STAGES) * stage_elems) * 2u;
     const uint32_t w_s = a_s + (uint32_t)(NS * LDX) * 2u;
-    const __nv_bfloat16* src = xb + ((size_t)dz * P + (size_t)t * TMP) * cin + c0;
-    for (int i = tid; i < NS * 2; i += TMP) {
-      const int q = i >> 1;
-      const int h = (i & 1) * 8;
-      cp_async16(a_s + (uint32_t)(q * LDX + h) * 2u, src + (size_t)q * cin + h);
+    if constexpr (WIDE) {
+      // rows r0 .. r0 + WIDE_ROWS + 1 and columns x0 .. x0 + WIDE_COLS + 1 of
+      // the padded plane; those past its edge (a ragged tile) feed only
+      // dropped outputs and are not copied
+      const int r0 = t / strips * WIDE_ROWS;
+      const int x0 = t % strips * WIDE_COLS;
+      const __nv_bfloat16* src = xb + ((size_t)dz * P + (size_t)r0 * WP + x0) * cin + c0;
+      for (int i = tid; i < NS * 2; i += TMP) {
+        const int q = i >> 1;
+        const int h = (i & 1) * 8;
+        const int qr = q / WIDE_SPAN_COLS;
+        const int qc = q - qr * WIDE_SPAN_COLS;
+        if (r0 + qr < p.H + 2 && x0 + qc < WP) {
+          cp_async16(a_s + (uint32_t)(q * LDX + h) * 2u,
+                     src + ((size_t)qr * WP + qc) * cin + h);
+        }
+      }
+    } else {
+      const __nv_bfloat16* src = xb + ((size_t)dz * P + (size_t)t * TMP) * cin + c0;
+      for (int i = tid; i < NS * 2; i += TMP) {
+        const int q = i >> 1;
+        const int h = (i & 1) * 8;
+        cp_async16(a_s + (uint32_t)(q * LDX + h) * 2u, src + (size_t)q * cin + h);
+      }
     }
     const __nv_bfloat16* wsrc = wb + ((size_t)dz * 9 * cin + c0) * TN;
     for (int i = tid; i < 9 * PCC * (TN / 8); i += TMP) {
@@ -482,9 +543,13 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
     }
   }
   // ldmatrix row addresses of this lane: A rows (lane & 15) of the warp's
-  // 16-row block, channels (lane >> 4) * 8; B K rows (lane & 15), output
+  // 16-row block, channels (lane >> 4) * 8 (tile row i at span voxel i, or
+  // in the wide instance at (i / WIDE_COLS, i % WIDE_COLS) of the span: a
+  // warp's 32 rows lie in one tile row); B K rows (lane & 15), output
   // channels (lane >> 4) * 8 of a 16-wide block
-  const uint32_t a_lane = (uint32_t)(((warp * WM + (lane & 15)) * LDX + (lane >> 4) * 8) * 2);
+  const int a_row = WIDE ? (warp * WM) / WIDE_COLS * WIDE_SPAN_COLS + (warp * WM) % WIDE_COLS
+                         : warp * WM;
+  const uint32_t a_lane = (uint32_t)(((a_row + (lane & 15)) * LDX + (lane >> 4) * 8) * 2);
   const uint32_t b_lane = (uint32_t)(((lane & 15) * LDP + (lane >> 4) * 8) * 2);
 
 #pragma unroll
@@ -493,7 +558,7 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
     cp_async_commit();
   }
   int k_in_tile = 0;
-  int v0 = 0;
+  int v0 = t0 * TMP;
   for (int it = 0; it < total; ++it) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage it landed for all; stage it - 1 is free
@@ -504,7 +569,7 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
     const uint32_t w_s = a_s + (uint32_t)(NS * LDX) * 2u;
 #pragma unroll
     for (int j = 0; j < 9; ++j) {
-      const int off = (j / 3) * WP + (j % 3);
+      const int off = (j / 3) * SR + (j % 3);
       uint32_t af[MI][4], bq[2][4];
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi) {
@@ -526,15 +591,25 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
 
     if (++k_in_tile == KI) {
       // epilogue of the tile, from registers: tile row i is virtual voxel
-      // v0 + i = r * WP + c; columns c >= W and rows r >= H are dropped
+      // v0 + i = r * WP + c, or in the wide instance output (r0 + i /
+      // WIDE_COLS, x0 + i % WIDE_COLS); columns c >= W and rows r >= H are
+      // dropped
       const int S = p.H * p.W;
+      const int t = t0 + it / KI;
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int v = v0 + warp * WM + 16 * mi + (lane >> 2) + 8 * h;
-          const int r = v / WP;
-          const int c = v - r * WP;
+          const int i = warp * WM + 16 * mi + (lane >> 2) + 8 * h;
+          int r, c;
+          if constexpr (WIDE) {
+            r = t / strips * WIDE_ROWS + i / WIDE_COLS;
+            c = t % strips * WIDE_COLS + i % WIDE_COLS;
+          } else {
+            const int v = v0 + i;
+            r = v / WP;
+            c = v - r * WP;
+          }
           if (r < p.H && c < p.W) {
             const int m = r * p.W + c;
 #pragma unroll
@@ -597,9 +672,35 @@ __global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(Packed
     if (n0 + col < p.Cout) {
       float s = 0.f;
       for (int w = 0; w < NW; ++w) s += red[(q * NW + w) * TN + col];
-      p.stats[(((size_t)b * p.D + d) * 2 + q) * p.Cout + n0 + col] = s;
+      // the wide instance: partial (plane, group) of its scratch buffer
+      const size_t row = WIDE ? (size_t)blockIdx.z * gridDim.y + blockIdx.y
+                              : (size_t)b * p.D + d;
+      p.stats[(row * 2 + q) * p.Cout + n0 + col] = s;
     }
   }
+}
+
+template <int TMP>
+__global__ void __launch_bounds__(TMP, 512 / TMP) conv3d_cs_packed_kernel(PackedArgs p) {
+  packed_conv<TMP, false>(p);
+}
+
+__global__ void __launch_bounds__(WIDE_TM, 2) conv3d_cs_packed_wide_kernel(PackedArgs p) {
+  packed_conv<WIDE_TM, true>(p);
+}
+
+// The wide instance's stats: stats[plane, q, n] = the sum over groups g, in
+// order, of partials[plane, g, q, n]; one thread a (plane, q, n).
+__global__ void __launch_bounds__(STATS_THREADS) conv3d_cs_stats_sum_kernel(
+    const float* partials, float* stats, int planes, int groups, int cout) {
+  const long long i = (long long)blockIdx.x * STATS_THREADS + threadIdx.x;
+  const int row = 2 * cout;
+  if (i >= (long long)planes * row) return;
+  const long long plane = i / row;
+  const float* src = partials + plane * groups * row + (i - plane * row);
+  float s = 0.f;
+  for (int g = 0; g < groups; ++g) s += src[(size_t)g * row];
+  stats[i] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -774,148 +875,6 @@ __global__ void __launch_bounds__(DIRECT_THREADS, 512 / DIRECT_THREADS)
       p.stats[(((size_t)b * p.D + d) * 2 + q) * p.Cout + n0 + col] = s;
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// gather conv on (B, D, C, H*W)
-
-// Epilogue of one 128-voxel tile: accumulators → c_s → bf16 output (+ bias),
-// and this thread's running stats of the f32 values. Tile row i is output
-// voxel m0 + i.
-__device__ __forceinline__ void store_tile(const Args& p, AccFrag (&acc)[TN / 16],
-                                           float* c_s, int b, int d, int n0,
-                                           int m0, float (&s1)[NJ],
-                                           float (&s2)[NJ]) {
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int S = p.H * p.W;
-#pragma unroll
-  for (int nf = 0; nf < TN / 16; ++nf) {
-    wmma::store_matrix_sync(c_s + nf * 16 * LDC + warp * 16, acc[nf], LDC,
-                            wmma::mem_col_major);
-  }
-  __syncthreads();
-  const int m_t = tid % TM;
-  const int k_t = tid / TM;
-  const int m = m0 + m_t;
-  if (m < S) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int nn = k_t + 2 * j;
-      const int n = n0 + nn;
-      if (n < p.Cout) {
-        float v = c_s[nn * LDC + m_t];
-        if (p.bias != nullptr) v += p.bias[n];
-        p.out[(((size_t)b * p.D + d) * p.Cout + n) * S + m] = __float2bfloat16(v);
-        s1[j] += v;
-        s2[j] += v * v;
-      }
-    }
-  }
-  __syncthreads();  // c_s is overwritten by the next tile
-}
-
-// Reduce the 128 partials of each output channel in a fixed order and write
-// stats[b, d, :, n0 : n0 + TN].
-__device__ __forceinline__ void store_stats(const Args& p, float* c_s, int b,
-                                            int d, int n0, const float (&s1)[NJ],
-                                            const float (&s2)[NJ]) {
-  const int tid = threadIdx.x;
-  const int m_t = tid % TM;
-  const int k_t = tid / TM;
-  for (int q = 0; q < 2; ++q) {
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      c_s[(k_t + 2 * j) * LDC + m_t] = q == 0 ? s1[j] : s2[j];
-    }
-    __syncthreads();
-    if (tid < TN && n0 + tid < p.Cout) {
-      float s = 0.f;
-      for (int i = 0; i < TM; ++i) s += c_s[tid * LDC + i];
-      p.stats[(((size_t)b * p.D + d) * 2 + q) * p.Cout + n0 + tid] = s;
-    }
-    __syncthreads();
-  }
-}
-
-__global__ void __launch_bounds__(THREADS) conv3d_cs_gather_kernel(Args p) {
-  __shared__ __align__(32) __nv_bfloat16 a_s[TK * LDA];
-  __shared__ __align__(32) __nv_bfloat16 b_s[TK * LDB];
-  __shared__ __align__(32) float c_s[TN * LDC];
-
-  const int n0 = blockIdx.x * TN;
-  const int d = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int cin = p.C1 + p.C2;
-  const int S = p.H * p.W;
-  const int K = 27 * cin;
-  const int n_chunks = (K + TK - 1) / TK;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  const int m_t = tid % TM;
-  const int k_t = tid / TM;
-
-  float s1[NJ], s2[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) s1[j] = s2[j] = 0.f;
-
-  for (int m0 = 0; m0 < S; m0 += TM) {
-    AccFrag acc[TN / 16];
-#pragma unroll
-    for (int nf = 0; nf < TN / 16; ++nf) wmma::fill_fragment(acc[nf], 0.f);
-    const int m = m0 + m_t;
-    const bool m_ok = m < S;
-    const int hh = m_ok ? m / p.W : 0;
-    const int ww = m_ok ? m % p.W : 0;
-
-    for (int kc = 0; kc < n_chunks; ++kc) {
-      // A: im2col gather of 128 voxels x 32 K columns
-      for (int kk = k_t; kk < TK; kk += THREADS / TM) {
-        const int k = kc * TK + kk;
-        __nv_bfloat16 val = zero;
-        if (m_ok && k < K) {
-          const int tap = k / cin;
-          const int ci = k - tap * cin;
-          const int z = d + tap / 9 - 1;
-          const int y = hh + (tap / 3) % 3 - 1;
-          const int x = ww + tap % 3 - 1;
-          if (z >= 0 && z < p.D && y >= 0 && y < p.H && x >= 0 && x < p.W) {
-            val = prologue(p, b, ci, channel_ptr(p, b, z, ci)[y * p.W + x]);
-          }
-        }
-        a_s[kk * LDA + m_t] = val;
-      }
-      // B: 32 weight rows x 32 output channels
-      for (int i = tid; i < TK * TN; i += THREADS) {
-        const int kk = i / TN;
-        const int nn = i % TN;
-        const int k = kc * TK + kk;
-        const int n = n0 + nn;
-        b_s[kk * LDB + nn] =
-            (k < K && n < p.Cout) ? p.w[(size_t)k * p.Cout + n] : zero;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < TK; ks += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major>
-            af;
-        wmma::load_matrix_sync(af, a_s + ks * LDA + warp * 16, LDA);
-#pragma unroll
-        for (int nf = 0; nf < TN / 16; ++nf) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              bf;
-          wmma::load_matrix_sync(bf, b_s + ks * LDB + nf * 16, LDB);
-          wmma::mma_sync(acc[nf], af, bf, acc[nf]);
-        }
-      }
-      __syncthreads();
-    }
-    store_tile(p, acc, c_s, b, d, n0, m0, s1, s2);
-  }
-  if (p.stats != nullptr) store_stats(p, c_s, b, d, n0, s1, s2);
 }
 
 // ---------------------------------------------------------------------------
@@ -1259,6 +1218,25 @@ int launch_packed(const PackedArgs& p, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+constexpr size_t WIDE_SMEM = (size_t)STAGES * wide_stage_elems() * 2;
+
+PackedArgs make_packed_args(const void* xp, const void* w, const void* bias, void* out,
+                            void* stats, int B, int D, int Cin, int Cout, int H, int W) {
+  PackedArgs p = {};
+  p.xp = static_cast<const __nv_bfloat16*>(xp);
+  p.w = static_cast<const __nv_bfloat16*>(w);
+  p.bias = static_cast<const float*>(bias);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.stats = static_cast<float*>(stats);
+  p.B = B;
+  p.D = D;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  p.H = H;
+  p.W = W;
+  return p;
+}
+
 Args make_args(const void* x1, const void* x2, const void* pair_bias,
                const void* aff_a, const void* aff_c, int B, int D, int C1,
                int C2, int H, int W) {
@@ -1320,30 +1298,55 @@ extern "C" int conv3d_cs_pack_launch(const void* x1, const void* x2,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The packed conv: xp from conv3d_cs_pack_launch with a tail of at least tm
-// voxels of storage past its end, Cin its channel slots (a multiple of 16), w
+// The packed conv: xp from conv3d_cs_pack_launch with a tail of at least
+// tm + 1 voxels of storage past its end, Cin its channel slots (a multiple of 16), w
 // in the per-block layout (ceil(Cout / 32), 27 * Cin, 32) bf16 with zero rows
 // at the pad slots; tm is 256 or 128.
 extern "C" int conv3d_cs_packed_launch(const void* xp, const void* w,
                                        const void* bias, void* out, void* stats,
                                        int B, int D, int Cin, int Cout, int H,
                                        int W, int tm, void* stream) {
-  PackedArgs p;
-  p.xp = static_cast<const __nv_bfloat16*>(xp);
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.bias = static_cast<const float*>(bias);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.stats = static_cast<float*>(stats);
-  p.B = B;
-  p.D = D;
-  p.Cin = Cin;
-  p.Cout = Cout;
-  p.H = H;
-  p.W = W;
+  const PackedArgs p = make_packed_args(xp, w, bias, out, stats, B, D, Cin, Cout, H, W);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tm == 256) return launch_packed<256>(p, s);
   if (tm == 128) return launch_packed<128>(p, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The wide instance of the packed conv, for planes of any width: the same xp
+// (its tail of 257 voxels), Cin and w; 256-row tiles, tiles_per_block of them
+// a block, so ceil(H * (W + 2) / 256 / tiles_per_block) groups a plane.
+// With stats, partials is scratch of (B * D, groups, 2, Cout) f32, which the
+// second pass sums into stats in group order.
+extern "C" int conv3d_cs_packed_wide_launch(const void* xp, const void* w, const void* bias,
+                                            void* out, void* stats, void* partials, int B,
+                                            int D, int Cin, int Cout, int H, int W,
+                                            int tiles_per_block, void* stream) {
+  const long long tiles = (long long)((H + WIDE_ROWS - 1) / WIDE_ROWS) *
+                          ((W + WIDE_COLS - 1) / WIDE_COLS);
+  if (Cin % PCC != 0 || tiles_per_block < 1 || (stats != nullptr) != (partials != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long groups = (tiles + tiles_per_block - 1) / tiles_per_block;
+  const long long planes = (long long)B * D;
+  if (groups > 65535 || planes > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  PackedArgs p = make_packed_args(xp, w, bias, out, partials, B, D, Cin, Cout, H, W);
+  p.tiles_per_block = tiles_per_block;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(conv3d_cs_packed_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(WIDE_SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Cout + TN - 1) / TN, (unsigned)groups, (unsigned)planes);
+  conv3d_cs_packed_wide_kernel<<<grid, WIDE_TM, WIDE_SMEM, s>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || stats == nullptr) return static_cast<int>(err);
+  const long long n = planes * 2 * Cout;
+  conv3d_cs_stats_sum_kernel<<<(unsigned)((n + STATS_THREADS - 1) / STATS_THREADS),
+                               STATS_THREADS, 0, s>>>(static_cast<const float*>(partials),
+                                                      static_cast<float*>(stats), (int)planes,
+                                                      (int)groups, Cout);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The direct conv, C_in = 1: x (B, D, 1, H*W) bf16, W and Cout multiples of
@@ -1374,59 +1377,44 @@ extern "C" int conv3d_cs_direct_launch(const void* x, const void* w, const void*
 }
 
 // Registers a thread and resident blocks an SM of the kernel that takes a
-// plane of width W: the packed kernel with tm rows (256 or 128), the direct
-// kernel with bands of rb rows (tm 1), the narrow kernel on C input channels
-// with bands of rb rows (tm 2), or the
-// gather kernel (tm 0), as the card reports them.
+// plane of width W: the packed kernel with tm rows (256 or 128), its wide
+// instance (tm 3), the direct kernel with bands of rb rows (tm 1), or the
+// narrow kernel on C input channels with bands of rb rows (tm 2), as the card
+// reports them.
 extern "C" int conv3d_cs_resources(int tm, int rb, int W, int C, int* regs,
                                    int* blocks_per_sm) {
-  const void* fn = reinterpret_cast<const void*>(conv3d_cs_gather_kernel);
-  int threads = THREADS;
-  size_t smem = 0;
-  if (tm == 256 || tm == 128 || tm == 1 || tm == 2) {
-    if (tm == 2) {
-      fn = reinterpret_cast<const void*>(conv3d_cs_narrow_kernel);
-      threads = NARROW_THREADS;
-      smem = narrow_smem_bytes(narrow_ce(C), rb, W);
-    } else if (tm == 1) {
-      fn = reinterpret_cast<const void*>(conv3d_cs_direct_kernel);
-      threads = DIRECT_THREADS;
-      smem = (size_t)direct_smem_floats(rb, W) * 4;
-    } else {
-      fn = tm == 256 ? reinterpret_cast<const void*>(conv3d_cs_packed_kernel<256>)
-                     : reinterpret_cast<const void*>(conv3d_cs_packed_kernel<128>);
-      threads = tm;
-      smem = (size_t)STAGES * packed_stage_elems(tm, W) * 2;
-    }
-    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  const void* fn;
+  int threads;
+  size_t smem;
+  if (tm == 2) {
+    fn = reinterpret_cast<const void*>(conv3d_cs_narrow_kernel);
+    threads = NARROW_THREADS;
+    smem = narrow_smem_bytes(narrow_ce(C), rb, W);
+  } else if (tm == 1) {
+    fn = reinterpret_cast<const void*>(conv3d_cs_direct_kernel);
+    threads = DIRECT_THREADS;
+    smem = (size_t)direct_smem_floats(rb, W) * 4;
+  } else if (tm == 3) {
+    fn = reinterpret_cast<const void*>(conv3d_cs_packed_wide_kernel);
+    threads = WIDE_TM;
+    smem = WIDE_SMEM;
+  } else if (tm == 256 || tm == 128) {
+    fn = tm == 256 ? reinterpret_cast<const void*>(conv3d_cs_packed_kernel<256>)
+                   : reinterpret_cast<const void*>(conv3d_cs_packed_kernel<128>);
+    threads = tm;
+    smem = (size_t)STAGES * packed_stage_elems(tm, W) * 2;
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return static_cast<int>(err);
   *regs = attr.numRegs;
   return static_cast<int>(
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, threads, smem));
-}
-
-// The gather conv on (B, D, C, H*W) itself, any C1 and C2: w (27 * (C1 + C2),
-// C_out) bf16.
-extern "C" int conv3d_cs_gather_launch(const void* x1, const void* x2,
-                                const void* pair_bias, const void* w,
-                                const void* bias, const void* aff_a,
-                                const void* aff_c, void* out, void* stats,
-                                int B, int D, int C1, int C2, int Cout, int H,
-                                int W, void* stream) {
-  Args p = make_args(x1, x2, pair_bias, aff_a, aff_c, B, D, C1, C2, H, W);
-  p.w = static_cast<const __nv_bfloat16*>(w);
-  p.bias = static_cast<const float*>(bias);
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.stats = static_cast<float*>(stats);
-  p.Cout = Cout;
-  const dim3 grid((Cout + TN - 1) / TN, D, B);
-  conv3d_cs_gather_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // The narrow conv on (B, D, C, H*W) itself, C1 + C2 <= 16: w from

@@ -11,19 +11,20 @@ rounding, (B, D, 2, C_out) f32; ``pair=(x2, w2[, bias2])`` convolves
 concat([x, bf16(x2 + bf16(bias2))]); ``in_affine=(a, c)`` applies
 bf16(mish(x·a + c)) to the input. Odd C_in is taken as is.
 
-Four paths on the card, by a fixed shape rule (``conv3d_cs_path``):
+Three paths on the card, by a fixed shape rule (``conv3d_cs_path``):
 ``packed`` — ``conv3d_cs_pack`` writes the conv's input once as xp (B, D+2,
 H+2, W+2, Cp), zero-padded, channels innermost, with the concat, pair bias
 and prologue applied and the channels padded with zeros to the packed
 conv's K step of 16 (``packed_channels``), and the packed conv kernel reads
-it with 16-byte copies; ``direct`` for C_in = 1 with W and C_out multiples
-of 8 (the first conv), a stencil of f32 FMAs on input planes staged in
-shared memory; ``narrow`` for C1 + C2 ≤ ``NARROW_MAX`` (the packed first
-conv, narrow models), tensor-core MMAs on input planes staged in shared
-memory once per band, channels innermost, with resident weights; and
-``gather`` for planes too wide for the packed conv's ring of stages
-(``packed_smem_bytes``), which gathers its im2col tiles from (B, D, C, H·W)
-itself.
+it with 16-byte copies, one block a plane where its ring of stages fits a
+block (``packed_smem_bytes``), else its wide instance (``packed_wide``):
+tiles of 4 × 64 outputs, whose stages do not grow with W, spread over
+blocks;
+``direct`` for C_in = 1 with W and C_out multiples of 8 (the first conv), a
+stencil of f32 FMAs on input planes staged in shared memory; and ``narrow``
+for C1 + C2 ≤ ``NARROW_MAX`` (the packed first conv, narrow models),
+tensor-core MMAs on input planes staged in shared memory once per band,
+channels innermost, with resident weights.
 """
 
 from __future__ import annotations
@@ -37,7 +38,9 @@ from delivr_cfos_tpu_torch.ops import _build
 from delivr_cfos_tpu_torch.utils.device import full_f32
 
 TN = 32  # output channels per block of the packed conv
-TAIL = 256  # voxels of storage past xp's end: the largest tile the conv reads past it
+# voxels of storage past xp's end: the largest tile plus one, which the last
+# tile's dz = 2 span reads past it (the wide instance reads none)
+TAIL = 257
 DIRECT_MAX_W = 2048  # widest plane the direct conv takes (bands of 2 rows)
 DIRECT_BAND_BYTES = 100 * 1024  # f32 input rows a direct block stages: 2 blocks an SM
 NARROW_MAX = 16  # C1 + C2 the narrow conv takes (the kernel's NARROW_MAX_C)
@@ -47,7 +50,12 @@ NARROW_PASS = 32  # output channels a narrow block computes per pass over its st
 # epilogue tiles (32 channels × 40 bf16) and stats partials (2 × 32 f32)
 _NARROW_FIXED = 8 * 32 * 40 * 2 + 8 * 2 * 32 * 4
 PACKED_K = 16  # channel slots a K step of the packed conv (the kernel's PCC)
+PACKED_STAGES = 3  # the packed conv's ring of stages (the kernel's STAGES)
 SMEM_OPTIN = 232_448  # shared memory an H100 block may opt into
+# the packed conv's wide instance: tiles of WIDE_ROWS × WIDE_COLS outputs
+WIDE_COLS = 64
+WIDE_ROWS = 4
+WIDE_BLOCKS_PER_SM = 2  # its resident blocks (256 threads, its registers)
 
 
 def _mish(v: torch.Tensor) -> torch.Tensor:
@@ -65,16 +73,15 @@ def conv3d_cs_path(c1: int, c2: int, w: int, cout: int) -> str:
     """The kernel path a CUDA call with C1 and C2 input channels, planes W
     wide and C_out output channels takes: packed without padding where C1
     and C2 are multiples of 16, then direct, then narrow, then packed with
-    the channels padded to ``packed_channels``; gather only where the
-    packed conv's ring of stages does not fit a block's shared memory."""
-    packs = packed_smem_bytes(256, w) <= SMEM_OPTIN
-    if c1 % 16 == 0 and c2 % 16 == 0 and packs:
+    the channels padded to ``packed_channels``. Planes too wide for the
+    packed ring take the packed conv's wide instance (``packed_wide``)."""
+    if c1 % 16 == 0 and c2 % 16 == 0:
         return "packed"
     if c1 == 1 and c2 == 0 and w % 8 == 0 and w <= DIRECT_MAX_W and cout % 8 == 0:
         return "direct"
     if _narrow_takes(c1 + c2, w):
         return "narrow"
-    return "packed" if packs else "gather"
+    return "packed"
 
 
 def _pad8(c: int) -> int:
@@ -92,9 +99,53 @@ def packed_smem_bytes(tm: int, w: int) -> int:
     """Shared memory of a packed-conv block with ``tm``-row tiles on planes W
     wide (the kernel's STAGES · packed_stage_elems · 2): 3 stages, each a
     span of tm + 2(W + 2) + 2 voxels at 24 bf16 a voxel and 9 × 16 weight
-    rows of 40 bf16. The path rule asks at 256 rows, the tiles of every
+    rows of 40 bf16. ``packed_wide`` asks at 256 rows, the tiles of every
     plane wider than 126 columns (``packed_tile_rows``)."""
-    return 3 * ((tm + 2 * (w + 2) + 2) * (PACKED_K + 8) + 9 * PACKED_K * (TN + 8)) * 2
+    return PACKED_STAGES * ((tm + 2 * (w + 2) + 2) * (PACKED_K + 8) + 9 * PACKED_K * (TN + 8)) * 2
+
+
+def packed_wide(w: int) -> bool:
+    """Whether the packed conv takes planes W wide with its wide instance:
+    where its ring of stages at 256-row tiles, the tiles of every plane
+    wider than 126 columns, does not fit a block (W > 556)."""
+    return packed_smem_bytes(256, w) > SMEM_OPTIN
+
+
+def wide_smem_bytes() -> int:
+    """Shared memory of a block of the wide instance (the kernel's STAGES ·
+    wide_stage_elems · 2): 3 stages, each the (WIDE_ROWS + 2) × (WIDE_COLS +
+    2) voxels around a tile at 24 bf16 a voxel and 9 × 16 weight rows of 40
+    bf16, whatever W is."""
+    return PACKED_STAGES * ((WIDE_ROWS + 2) * (WIDE_COLS + 2) * (PACKED_K + 8)
+                            + 9 * PACKED_K * (TN + 8)) * 2
+
+
+def wide_tile_groups(h: int, w: int, planes: int, cout: int, cin: int,
+                     sms: int) -> tuple[int, int]:
+    """(tiles a block, groups a plane) of the wide instance on ``planes``
+    H×W planes of ``cin`` channel slots: the plane's ⌈H/4⌉·⌈W/64⌉ tiles, row
+    by row, in groups of equal tiles (the last may have fewer), the grid
+    (⌈C_out/32⌉, groups, ``planes``). The groups minimise the waves of
+    ``WIDE_BLOCKS_PER_SM`` blocks on ``sms`` SMs times a block's stages (3 ·
+    C/16 a tile, and the 2 its ring loads before its first MMA), among the
+    grids of at least one such wave where there are tiles enough; on a tie
+    the larger groups, which write fewer stats partials."""
+    tiles = -(-h // WIDE_ROWS) * -(-w // WIDE_COLS)
+    per_group = planes * -(-cout // TN)  # blocks a tile group
+    stages = 3 * -(-cin // PACKED_K)
+    slots = WIDE_BLOCKS_PER_SM * sms
+    best = None
+    for groups in range(1, tiles + 1):
+        per = -(-tiles // groups)
+        if -(-tiles // per) != groups:
+            continue  # the same tiles a block as fewer groups
+        blocks = per_group * groups
+        if blocks < slots and per_group * tiles >= slots:
+            continue
+        cost = -(-blocks // slots) * (per * stages + PACKED_STAGES - 1)
+        if best is None or cost < best[0]:
+            best = (cost, per, groups)
+    return best[1], best[2]
 
 
 def narrow_k(cin: int) -> int:
@@ -356,11 +407,12 @@ def _outputs(b_, n_d, cout, s, emit_stats, dev):
     return out, stats
 
 
-def conv3d_cs_packed(xp, w_blk, bias, *, cout, emit_stats=False):
+def conv3d_cs_packed(xp, w_blk, bias, *, cout, emit_stats=False, wide=False):
     """The packed conv kernel on the card: ``xp`` from ``conv3d_cs_pack``
     (B, D+2, H+2, W+2, Cp) with its tail, Cp a multiple of 16; ``w_blk``
     from ``block_weights(kernel_weights(..., padded=True))``, (⌈C_out/32⌉,
-    27·Cp, 32). Returns what ``conv3d_cs`` returns; the plain version
+    27·Cp, 32). Its wide instance where ``packed_wide(W)`` or ``wide``.
+    Returns what ``conv3d_cs`` returns; the plain version
     (``conv3d_cs_packed_reference``) on a CPU tensor."""
     dev = xp.device
     if dev.type == "cpu":
@@ -369,10 +421,9 @@ def conv3d_cs_packed(xp, w_blk, bias, *, cout, emit_stats=False):
         raise ValueError(f"the packed conv runs on CUDA or the CPU, not {dev}")
     b_, dp, hp, wp, cin = xp.shape
     n_d, h, w = dp - 2, hp - 2, wp - 2
+    wide = wide or packed_wide(w)
     if cin % PACKED_K:
         raise ValueError(f"the packed conv needs C_in a multiple of {PACKED_K}, got {cin}")
-    if packed_smem_bytes(packed_tile_rows(h, w), w) > SMEM_OPTIN:
-        raise ValueError(f"the packed conv's ring does not fit a block on planes {w} wide")
     _check(xp, "xp", torch.bfloat16, xp.shape, dev)
     if xp.untyped_storage().nbytes() - xp.storage_offset() * 2 < (xp.numel() + TAIL * cin) * 2:
         raise ValueError(f"xp needs {TAIL} voxels of storage past its end (conv3d_cs_pack)")
@@ -382,20 +433,34 @@ def conv3d_cs_packed(xp, w_blk, bias, *, cout, emit_stats=False):
     out, stats = _outputs(b_, n_d, cout, h * w, emit_stats, dev)
     lib = _launcher()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.conv3d_cs_packed_launch(
-            _ptr(xp), _ptr(w_blk), _ptr(bias), _ptr(out), _ptr(stats),
-            b_, n_d, cin, cout, h, w, packed_tile_rows(h, w),
-            ctypes.c_void_p(stream),
-        )
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        if wide:
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            per, groups = wide_tile_groups(h, w, b_ * n_d, cout, cin, sms)
+            if b_ * n_d > 65535 or groups > 65535:
+                raise ValueError(f"the wide instance takes at most 65535 planes and tile "
+                                 f"groups, got {b_ * n_d} and {groups}")
+            # the blocks' stats partials, summed by the kernel's second pass
+            partials = (torch.empty((b_ * n_d, groups, 2, cout), dtype=torch.float32,
+                                    device=dev) if emit_stats else None)
+            err = lib.conv3d_cs_packed_wide_launch(
+                _ptr(xp), _ptr(w_blk), _ptr(bias), _ptr(out), _ptr(stats), _ptr(partials),
+                b_, n_d, cin, cout, h, w, per, stream)
+        else:
+            err = lib.conv3d_cs_packed_launch(
+                _ptr(xp), _ptr(w_blk), _ptr(bias), _ptr(out), _ptr(stats),
+                b_, n_d, cin, cout, h, w, packed_tile_rows(h, w), stream)
     if err != 0:
         raise RuntimeError(f"conv3d_cs kernel launch failed: CUDA error {err}")
     conv3d_cs.launches += 1
     conv3d_cs_packed.launches += 1
+    conv3d_cs_packed.wide_launches += int(wide)
     return (out, stats) if emit_stats else out
 
 
+# launches, and those of them on the wide instance
 conv3d_cs_packed.launches = 0
+conv3d_cs_packed.wide_launches = 0
 
 
 def _checked(x, weights, bias, h, w, in_affine, pair):
@@ -426,17 +491,6 @@ def _launch(fn, x, args, ints, emit_stats, cout):
         raise RuntimeError(f"conv3d_cs kernel launch failed: CUDA error {err}")
     conv3d_cs.launches += 1
     return (out, stats) if emit_stats else out
-
-
-def _gather(x, x2, pb, w_k, bias, a, c, h, w, emit_stats):
-    b_, n_d, c1, _ = x.shape
-    c2 = 0 if x2 is None else x2.shape[2]
-    cout = w_k.shape[1]
-    res = _launch(_launcher().conv3d_cs_gather_launch, x,
-                  (x, x2, pb, w_k, bias, a, c), (b_, n_d, c1, c2, cout, h, w),
-                  emit_stats, cout)
-    conv3d_cs_gather.launches += 1
-    return res
 
 
 def _narrow(x, x2, pb, weights, w2, bias, a, c, h, w, emit_stats):
@@ -477,14 +531,15 @@ def conv3d_cs(x, weights, bias, *, h, w, in_affine=None, emit_stats=False,
     if path == "narrow":
         return _narrow(x, x2, pb, weights, w2, bias, a, c, h, w, emit_stats)
     if path == "packed":
-        # xp is freed on return: the allocator orders its reuse on the stream
-        xp = conv3d_cs_pack(x, h=h, w=w, x2=x2, bias2=bias2, in_affine=in_affine)
-        return conv3d_cs_packed(xp, block_weights(kernel_weights(weights, w2, padded=True)),
-                                bias, cout=cout, emit_stats=emit_stats)
-    w_k = kernel_weights(weights, w2)
-    if path == "direct":
-        return _direct(x, w_k, bias, a, c, h, w, emit_stats)
-    return _gather(x, x2, pb, w_k, bias, a, c, h, w, emit_stats)
+        return _packed(x, weights, bias, h, w, in_affine, emit_stats, x2, w2, bias2, False)
+    return _direct(x, kernel_weights(weights), bias, a, c, h, w, emit_stats)
+
+
+def _packed(x, weights, bias, h, w, in_affine, emit_stats, x2, w2, bias2, wide):
+    # xp is freed on return: the allocator orders its reuse on the stream
+    xp = conv3d_cs_pack(x, h=h, w=w, x2=x2, bias2=bias2, in_affine=in_affine)
+    return conv3d_cs_packed(xp, block_weights(kernel_weights(weights, w2, padded=True)),
+                            bias, cout=weights.shape[-1], emit_stats=emit_stats, wide=wide)
 
 
 def conv3d_cs_narrow(x, weights, bias, *, h, w, in_affine=None,
@@ -505,19 +560,19 @@ def conv3d_cs_narrow(x, weights, bias, *, h, w, in_affine=None,
     return _narrow(x, x2, pb, weights, w2, bias, a, c, h, w, emit_stats)
 
 
-def conv3d_cs_gather(x, weights, bias, *, h, w, in_affine=None,
-                     emit_stats=False, pair=None):
-    """``conv3d_cs`` on the gather kernel whatever the shape (the plain
-    version on a CPU tensor): the path of planes too wide for the packed
-    conv's ring, and a yardstick for the other kernels."""
+def conv3d_cs_wide(x, weights, bias, *, h, w, in_affine=None,
+                   emit_stats=False, pair=None):
+    """``conv3d_cs`` on the pack and the packed conv's wide instance
+    whatever the shape (the plain version on a CPU tensor): the path of
+    planes too wide for the packed ring, and beside the other kernels at
+    their shapes a yardstick of the wide ring."""
     if x.device.type == "cpu":
         return conv3d_cs_reference(
             x, weights, bias, h=h, w=w, in_affine=in_affine,
             emit_stats=emit_stats, pair=pair,
         )
-    x2, w2, _, pb, a, c = _checked(x, weights, bias, h, w, in_affine, pair)
-    return _gather(x, x2, pb, kernel_weights(weights, w2), bias, a, c, h, w,
-                   emit_stats)
+    x2, w2, bias2, _, _, _ = _checked(x, weights, bias, h, w, in_affine, pair)
+    return _packed(x, weights, bias, h, w, in_affine, emit_stats, x2, w2, bias2, True)
 
 
 def conv3d_cs_direct(x, weights, bias, *, h, w, in_affine=None,
@@ -536,16 +591,18 @@ def conv3d_cs_direct(x, weights, bias, *, h, w, in_affine=None,
 
 # launches of all conv kernels (18 a forward), and of each kernel alone
 conv3d_cs.launches = 0
-conv3d_cs_gather.launches = 0
 conv3d_cs_direct.launches = 0
 conv3d_cs_narrow.launches = 0
 
 
 def conv3d_cs_resources(path: str, h: int, w: int, cin: int = 2) -> tuple[int, int]:
     """(registers a thread, resident blocks an SM) of the conv kernel of
-    ``path`` (``conv3d_cs_path``) on an H×W plane (with ``cin`` input
-    channels on the narrow path), as the card reports them."""
-    tm = {"packed": packed_tile_rows(h, w), "direct": 1, "narrow": 2, "gather": 0}[path]
+    ``path`` (``conv3d_cs_path``, or "wide": the packed conv's wide instance
+    whatever W is) on an H×W plane (with ``cin`` input channels on the
+    narrow path), as the card reports them."""
+    if path == "packed" and packed_wide(w):
+        path = "wide"
+    tm = {"packed": packed_tile_rows(h, w), "wide": 3, "direct": 1, "narrow": 2}[path]
     rb = narrow_band_rows(cin, h, w) if path == "narrow" else direct_band_rows(h, w)
     regs, blocks = ctypes.c_int(), ctypes.c_int()
     err = _launcher().conv3d_cs_resources(tm, rb, w, cin, ctypes.byref(regs),
@@ -557,9 +614,9 @@ def conv3d_cs_resources(path: str, h: int, w: int, cin: int = 2) -> tuple[int, i
 
 def _launcher():
     lib = _build.load("conv3d_cs")
-    if lib.conv3d_cs_gather_launch.argtypes is None:
-        lib.conv3d_cs_gather_launch.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    if lib.conv3d_cs_packed_wide_launch.argtypes is None:
+        lib.conv3d_cs_packed_wide_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
         lib.conv3d_cs_direct_launch.argtypes = (
             [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.conv3d_cs_pack_launch.argtypes = (
@@ -570,7 +627,7 @@ def _launcher():
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         lib.conv3d_cs_resources.argtypes = (
             [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2)
-        for fn in (lib.conv3d_cs_gather_launch, lib.conv3d_cs_direct_launch,
+        for fn in (lib.conv3d_cs_packed_wide_launch, lib.conv3d_cs_direct_launch,
                    lib.conv3d_cs_pack_launch, lib.conv3d_cs_packed_launch,
                    lib.conv3d_cs_narrow_launch, lib.conv3d_cs_resources):
             fn.restype = ctypes.c_int

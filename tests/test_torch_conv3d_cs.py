@@ -4,7 +4,8 @@ version of the pack step (conv3d_cs_pack_reference) against the prologue
 built the way the plain conv built it before, bit for bit, its padded layout
 (the channels in the slots the packed conv's K steps read, zeros elsewhere),
 and a conv of its output, and the plain packed conv on the padded pack,
-against the JAX kernel.
+against the JAX kernel, also on planes wider than the packed ring (the
+wide instance's shapes); the path rule and the shared-memory mirrors.
 
 Tolerances: outputs within one bf16 ULP at their magnitude — both sides sum
 the same bf16 products in f32, in other orders, and round once, so a sum
@@ -25,7 +26,6 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     block_weights,
     conv3d_cs,
     conv3d_cs_direct,
-    conv3d_cs_gather,
     conv3d_cs_narrow,
     conv3d_cs_pack,
     conv3d_cs_pack_reference,
@@ -33,6 +33,7 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     conv3d_cs_packed_reference,
     conv3d_cs_path,
     conv3d_cs_reference,
+    conv3d_cs_wide,
     direct_band_rows,
     kernel_weights,
     narrow_band_rows,
@@ -42,6 +43,9 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     packed_channels,
     packed_smem_bytes,
     packed_tile_rows,
+    packed_wide,
+    wide_smem_bytes,
+    wide_tile_groups,
 )
 from delivr_cfos_tpu_torch.ops.conv3d_cs import NARROW_MAX, NARROW_SMEM_BYTES, SMEM_OPTIN
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -343,21 +347,21 @@ def test_path_rule_and_block_weights():
     (1, 0, 7, 32, "narrow"),  # W not a multiple of 8
     (1, 0, 64, 4, "narrow"),  # C_out not a multiple of 8
     (3, 0, 64, 32, "narrow"),  # C_in neither 1 nor a multiple of 16
-    (1, 0, 4096, 32, "gather"),  # wider than the direct and narrow convs' bands take
+    (1, 0, 4096, 32, "packed"),  # wider than the direct and narrow convs' bands take
     (1, 8, 64, 32, "narrow"),  # pair mode never takes the direct conv
     (16, 16, 7, 4, "packed"),
     (2, 0, 64, 64, "narrow"),  # the packed first conv at G = 2
     (NARROW_MAX - 6, 6, 64, 32, "narrow"),  # C1 + C2 = NARROW_MAX
     (NARROW_MAX + 1, 0, 64, 32, "packed"),  # one more: padded to 32 slots
     (NARROW_MAX - 7, 8, 64, 32, "packed"),  # 9 + 8: slots 16 + 8, padded to 32
-    (8, 0, 1024, 32, "gather"),  # not one row of the plane fits, nor the ring
+    (8, 0, 1024, 32, "packed"),  # not one row of the plane fits: the wide instance
     (24, 0, 64, 24, "packed"),  # a (24, 24, 48, 96, 192, 24) model's level 0
     (16, 8, 64, 32, "packed"),
     (24, 24, 32, 24, "packed"),  # its upcat_1.0: 48 slots, none a pad
     (15, 0, 300, 32, "packed"),  # the narrow conv stages no row; the ring fits
     (32, 0, 556, 32, "packed"),  # the widest plane the packed ring takes
-    (32, 0, 557, 32, "gather"),
-    (17, 0, 1024, 32, "gather"),
+    (32, 0, 557, 32, "packed"),  # one more: the wide instance
+    (17, 0, 1024, 32, "packed"),
 ])
 def test_conv3d_cs_path_rule(c1, c2, w, cout, path):
     assert conv3d_cs_path(c1, c2, w, cout) == path
@@ -369,8 +373,52 @@ def test_packed_ring_bytes_mirror_the_kernel():
     the widest plane a block's 232,448 bytes take is 556 columns."""
     assert packed_smem_bytes(256, 64) == 90_720
     assert packed_smem_bytes(256, 556) <= SMEM_OPTIN < packed_smem_bytes(256, 557)
+    assert not packed_wide(556) and packed_wide(557)
     # a plane wider than 126 columns has 256-row tiles whatever its height
     assert packed_tile_rows(1, 127) == 256 and packed_tile_rows(1, 126) == 128
+
+
+@pytest.mark.parametrize("w", [556, 557, 1024, 4096])
+def test_wide_ring_bytes_mirror_the_kernel(w):
+    """The wide instance's ring is the kernel's STAGES · wide_stage_elems ·
+    2 = 3 · (6 · 66 · 24 + 9 · 16 · 40) · 2 = 91,584 bytes at every W (the
+    source note: the 6 × 66 voxels around a 4 × 64 tile); the instance that
+    takes a plane is the ring's up to 556 columns and the wide one above,
+    whose block fits with room for 2 an SM."""
+    assert wide_smem_bytes() == 3 * (6 * 66 * 24 + 9 * 16 * 40) * 2 == 91_584
+    want = packed_smem_bytes(256, w) if w <= 556 else 91_584
+    assert (wide_smem_bytes() if packed_wide(w) else packed_smem_bytes(256, w)) == want
+    assert want <= SMEM_OPTIN
+    assert packed_wide(w) == (w > 556)
+    assert 2 * (wide_smem_bytes() + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("h,w,planes,cout,cin,want", [
+    (16, 1024, 32, 32, 32, (4, 16)),  # phase 4d's level 0: 2 windows of (16, 16, 1024)
+    (16, 1024, 32, 32, 64, (4, 16)),  # its upcat_1.0
+    (96, 640, 128, 32, 32, (60, 4)),  # 2 windows of (64, 96, 640)
+    (96, 640, 128 * 64, 32, 32, None),  # many planes
+    (1, 557, 1, 64, 32, (1, 9)),  # nine tiles, two C_out tiles: one block a tile
+])
+def test_wide_tile_groups_cover_the_plane_and_fill_the_card(h, w, planes, cout, cin, want):
+    """Every 4 × 64 tile of the plane in exactly one group of at most
+    ``per`` tiles; at least one wave of 2 blocks on each of 132 SMs wherever
+    the tiles allow it; no other grouping of fewer waves × stages a block
+    (3 · C/16 a tile, 2 to fill the ring), as the rule states."""
+    tiles = -(-h // 4) * -(-w // 64)
+    per, groups = wide_tile_groups(h, w, planes, cout, cin, 132)
+    assert per * (groups - 1) < tiles <= per * groups
+    n_ct, slots, stages = -(-cout // 32), 2 * 132, 3 * -(-cin // 16)
+    assert n_ct * groups * planes >= min(slots, n_ct * tiles * planes)
+
+    def cost(p):
+        return -(-(n_ct * -(-tiles // p) * planes) // slots) * (p * stages + 2)
+
+    fills = [p for p in range(1, tiles + 1)
+             if n_ct * -(-tiles // p) * planes >= min(slots, n_ct * tiles * planes)]
+    assert cost(per) == min(cost(p) for p in fills)
+    if want is not None:
+        assert (per, groups) == want
 
 
 @pytest.mark.parametrize("c1,c2,cout", [(24, 0, 24), (17, 0, 32), (24, 24, 24),
@@ -444,20 +492,21 @@ def test_narrow_weights_layout(c1, c2, cout):
 def test_packed_first_conv_shape_matches_jax():
     """The packed first conv (C_in = 2 → 64, with stats) on a small plane:
     the plain version against the JAX kernel in interpret mode, one bf16
-    ULP, stats rtol 1e-3; the narrow and gather wrappers on a CPU tensor
+    ULP, stats rtol 1e-3; the narrow and wide wrappers on a CPU tensor
     are that plain version and count no launch."""
     x, w, _ = _inputs(np.random.default_rng(17), 2, 64)
     want, st_want = jax_conv3d_cs(jnp.asarray(x), jnp.asarray(w), None,
                                   h=H, w=W, interpret=True, emit_stats=True)
     assert conv3d_cs_path(2, 0, W, 64) == "narrow"
-    before = (conv3d_cs.launches, conv3d_cs_narrow.launches, conv3d_cs_gather.launches)
+    before = (conv3d_cs.launches, conv3d_cs_narrow.launches, conv3d_cs_packed.wide_launches)
     got, st = conv3d_cs(_bf16(x), _t(w), None, h=H, w=W, emit_stats=True)
     assert_within_one_ulp(_np(got), want)
     assert_stats_close(st.numpy(), st_want)
-    for fn in (conv3d_cs_narrow, conv3d_cs_gather):
+    for fn in (conv3d_cs_narrow, conv3d_cs_wide):
         again, st_again = fn(_bf16(x), _t(w), None, h=H, w=W, emit_stats=True)
         assert torch.equal(again, got) and torch.equal(st_again, st)
-    assert (conv3d_cs.launches, conv3d_cs_narrow.launches, conv3d_cs_gather.launches) == before
+    assert (conv3d_cs.launches, conv3d_cs_narrow.launches,
+            conv3d_cs_packed.wide_launches) == before
 
 
 def test_direct_band_rows_fit_the_band_bytes():
@@ -504,12 +553,67 @@ def test_first_conv_plain_version_matches_jax_padded(b, d, h, w, cout, extra):
     kw = dict(h=h, w=w, emit_stats=True,
               in_affine=None if aff is None else (_t(aff[0]), _t(aff[1])))
     tb = None if bias is None else _t(bias)
-    before = (conv3d_cs.launches, conv3d_cs_direct.launches, conv3d_cs_gather.launches)
+    before = (conv3d_cs.launches, conv3d_cs_direct.launches, conv3d_cs_packed.wide_launches)
     got, st = conv3d_cs(_bf16(x), _t(wt), tb, **kw)
     assert got.shape == (b, d, cout, h * w) and st.shape == (b, d, 2, cout)
     assert_within_one_ulp(_np(got), want)
     assert_stats_close(st.numpy(), st_want)
-    for fn in (conv3d_cs_direct, conv3d_cs_gather):
+    for fn in (conv3d_cs_direct, conv3d_cs_wide):
         again, st_again = fn(_bf16(x), _t(wt), tb, **kw)
         assert torch.equal(again, got) and torch.equal(st_again, st)
-    assert (conv3d_cs.launches, conv3d_cs_direct.launches, conv3d_cs_gather.launches) == before
+    assert (conv3d_cs.launches, conv3d_cs_direct.launches,
+            conv3d_cs_packed.wide_launches) == before
+
+
+@pytest.mark.parametrize("c1,c2,cout,affine", [
+    (32, 0, 32, False),  # a level-0 conv of the production model
+    (32, 32, 32, False),  # its upcat_1.0: pair mode with the pair bias
+    (24, 0, 24, True),  # padded slots (24 -> 32), with the prologue
+    (24, 24, 24, False),  # 48 slots, pair mode
+])
+def test_conv3d_cs_on_a_wide_plane_matches_jax(c1, c2, cout, affine):
+    """At W = 1024, wider than the packed ring, where the card takes the
+    packed conv's wide instance: the port's ``conv3d_cs`` and its wide
+    wrapper on CPU tensors (the plain version, no launch), and the plain
+    packed conv on the padded pack, against the JAX kernel in interpret
+    mode on the same values: one bf16 ULP (at max(|value|, rms) with the
+    bias), stats rtol 1e-3."""
+    b, d, h, w = 1, 2, 2, 1024
+    assert conv3d_cs_path(c1, c2, w, cout) == "packed" and packed_wide(w)
+    rng = np.random.default_rng(c1 * 100 + c2 + cout)
+    cin = c1 + c2
+    x = rng.standard_normal((b, d, c1, h * w)).astype(np.float32)
+    wt = (rng.standard_normal((3, 3, 3, cin, cout)) / np.sqrt(27 * cin)).astype(np.float32)
+    bias = rng.standard_normal(cout).astype(np.float32)
+    kw, jkw, pk = {}, {}, {}
+    if c2:
+        x2 = rng.standard_normal((b, d, c2, h * w)).astype(np.float32)
+        b2 = (rng.standard_normal(c2) * 0.1).astype(np.float32)
+        kw["pair"] = (_bf16(x2), _t(wt[:, :, :, c1:]), _t(b2))
+        jkw["pair"] = (jnp.asarray(_np(_bf16(x2)), jnp.bfloat16),
+                       jnp.asarray(wt[:, :, :, c1:]), jnp.asarray(b2))
+        pk = dict(x2=_bf16(x2), bias2=_t(b2))
+    if affine:
+        a = rng.uniform(0.5, 1.5, (b, cin)).astype(np.float32)
+        c = rng.normal(0, 0.3, (b, cin)).astype(np.float32)
+        kw["in_affine"] = pk["in_affine"] = (_t(a), _t(c))
+        jkw["in_affine"] = (jnp.asarray(a), jnp.asarray(c))
+    w1 = wt[:, :, :, :c1]
+    want, st_want = jax_conv3d_cs(jnp.asarray(_np(_bf16(x)), jnp.bfloat16), jnp.asarray(w1),
+                                  jnp.asarray(bias), h=h, w=w, interpret=True,
+                                  emit_stats=True, **jkw)
+    before = (conv3d_cs.launches, conv3d_cs_packed.launches, conv3d_cs_packed.wide_launches)
+    got, st = conv3d_cs(_bf16(x), _t(w1), _t(bias), h=h, w=w, emit_stats=True, **kw)
+    assert_within_one_ulp(_np(got), want, rms_floor=True)
+    assert_stats_close(st.numpy(), st_want)
+    again, st_again = conv3d_cs_wide(_bf16(x), _t(w1), _t(bias), h=h, w=w, emit_stats=True,
+                                     **kw)
+    assert torch.equal(again, got) and torch.equal(st_again, st)
+    xpp = conv3d_cs_pack(_bf16(x), h=h, w=w, **pk)
+    assert xpp.shape == (b, d + 2, h + 2, w + 2, packed_channels(c1, c2))
+    w_blk = block_weights(kernel_weights(_t(w1), kw["pair"][1] if c2 else None, padded=True))
+    got_p, st_p = conv3d_cs_packed(xpp, w_blk, _t(bias), cout=cout, emit_stats=True)
+    assert_within_one_ulp(_np(got_p), want, rms_floor=True)
+    assert_stats_close(st_p.numpy(), st_want)
+    assert (conv3d_cs.launches, conv3d_cs_packed.launches,
+            conv3d_cs_packed.wide_launches) == before

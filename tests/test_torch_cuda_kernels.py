@@ -15,7 +15,6 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     block_weights,
     conv3d_cs,
     conv3d_cs_direct,
-    conv3d_cs_gather,
     conv3d_cs_narrow,
     conv3d_cs_pack,
     conv3d_cs_pack_reference,
@@ -24,9 +23,11 @@ from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     conv3d_cs_path,
     conv3d_cs_reference,
     conv3d_cs_resources,
+    conv3d_cs_wide,
     kernel_weights,
     narrow_band_rows,
     packed_channels,
+    packed_wide,
 )
 from delivr_cfos_tpu_torch.ops.conv3d_cs import NARROW_MAX
 from delivr_cfos_tpu_torch.ops.deconv2x_cs import (
@@ -289,27 +290,105 @@ def test_conv3d_cs_padded_packed_conv_matches_plain_versions(dev, c1, c2, affine
     assert torch.equal(again[0], got) and torch.equal(again[1], st)
 
 
-def test_conv3d_cs_planes_wider_than_the_packed_ring_take_the_gather_kernel(dev):
+def test_conv3d_cs_planes_wider_than_the_packed_ring_take_the_wide_instance(dev):
     """At C 32 → 32 the packed ring fits planes up to 556 wide; a 1024-wide
-    plane takes the gather kernel and matches its plain version; the packed
-    conv refuses it rather than fail to launch."""
+    plane takes the packed conv's wide instance and matches its plain
+    version."""
     g = torch.Generator().manual_seed(1024)
-    for w, path in ((556, "packed"), (1024, "gather")):
+    for w, wide in ((556, False), (1024, True)):
         x = torch.randn((1, 3, 32, 4 * w), generator=g).to(dev, torch.bfloat16)
         wt = (torch.randn((3, 3, 3, 32, 32), generator=g) * 0.1).to(dev)
-        assert conv3d_cs_path(32, 0, w, 32) == path
-        before = conv3d_cs_gather.launches, conv3d_cs_packed.launches
+        assert conv3d_cs_path(32, 0, w, 32) == "packed" and packed_wide(w) == wide
+        before = conv3d_cs_packed.wide_launches, conv3d_cs_packed.launches
         got, st = conv3d_cs(x, wt, None, h=4, w=w, emit_stats=True)
         torch.cuda.synchronize()
-        assert (conv3d_cs_gather.launches - before[0],
-                conv3d_cs_packed.launches - before[1]) == ((0, 1) if path == "packed" else (1, 0))
+        assert (conv3d_cs_packed.wide_launches - before[0],
+                conv3d_cs_packed.launches - before[1]) == (int(wide), 1)
         want, st_want = conv3d_cs_reference(x, wt, None, h=4, w=w, emit_stats=True)
         assert _ulps(got, want) <= 1.0
         torch.testing.assert_close(st, st_want, rtol=1e-3,
                                    atol=1e-3 * float(st_want.abs().max()))
-    xp = conv3d_cs_pack(x, h=4, w=1024)
-    with pytest.raises(ValueError, match="ring"):
-        conv3d_cs_packed(xp, block_weights(kernel_weights(wt)), None, cout=32)
+
+
+@pytest.mark.parametrize("b,d,h,w,c1,c2,cout,affine,bias", [
+    # the widths: just past the ring, phase 4d's level 0, a plane of
+    # one row too wide for every other kernel
+    (1, 3, 4, 557, 32, 0, 32, False, True),
+    (2, 2, 16, 1024, 32, 0, 32, False, False),
+    (1, 2, 1, 4096, 16, 0, 40, False, True),
+    # pair mode with the pair bias, the affine prologue
+    (1, 3, 5, 1024, 32, 32, 32, False, True),
+    (1, 2, 6, 640, 64, 0, 64, True, True),
+    # padded slots: C_in 8 (no band row of the narrow conv fits), 17, 24
+    # and 24 + 24; H·W not a multiple of 8 (one voxel a load)
+    (1, 3, 3, 1024, 8, 0, 32, False, True),
+    (2, 2, 3, 601, 17, 0, 24, True, False),
+    (1, 3, 5, 1023, 24, 0, 24, False, True),
+    (1, 2, 7, 777, 24, 24, 24, False, True),
+])
+def test_conv3d_cs_wide_instance_matches_plain_version(dev, b, d, h, w, c1, c2, cout,
+                                                       affine, bias):
+    """The packed conv's wide instance, taken by the rule on planes wider
+    than the ring: within one bf16 ULP at max(|value|, rms) of
+    conv3d_cs_reference and of conv3d_cs_packed_reference on the same xp,
+    stats rtol 1e-3 with atol 1e-3·max|Σ|, the same bits on a second
+    launch (its stats pass adds the blocks' partials in a fixed order)."""
+    g = torch.Generator().manual_seed(w * 10 + c1 + c2)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    cin = c1 + c2
+    x = rnd(b, d, c1, h * w).to(torch.bfloat16)
+    wt = rnd(3, 3, 3, c1, cout, scale=0.2)
+    bt = rnd(cout) if bias else None
+    kw, pk = dict(h=h, w=w, emit_stats=True), {}
+    if c2:
+        kw["pair"] = (rnd(b, d, c2, h * w).to(torch.bfloat16),
+                      rnd(3, 3, 3, c2, cout, scale=0.2), rnd(c2))
+        pk = dict(x2=kw["pair"][0], bias2=kw["pair"][2])
+    if affine:
+        kw["in_affine"] = pk["in_affine"] = (rnd(b, cin).abs() + 0.5, rnd(b, cin, scale=0.3))
+    assert conv3d_cs_path(c1, c2, w, cout) == "packed" and packed_wide(w)
+    before = conv3d_cs.launches, conv3d_cs_packed.wide_launches, conv3d_cs_pack.launches
+    got, st = conv3d_cs(x, wt, bt, **kw)
+    torch.cuda.synchronize()
+    assert (conv3d_cs.launches, conv3d_cs_packed.wide_launches, conv3d_cs_pack.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    xp = conv3d_cs_pack(x, h=h, w=w, **pk)
+    w_blk = block_weights(kernel_weights(wt, kw["pair"][1] if c2 else None, padded=True))
+    tol = lambda s: dict(rtol=1e-3, atol=1e-3 * float(s.abs().max()))  # noqa: E731
+    for want, st_want in (
+            conv3d_cs_reference(x, wt, bt, **kw),
+            conv3d_cs_packed_reference(xp, w_blk, bt, cout=cout, emit_stats=True)):
+        assert _ulps(got, want) <= 1.0
+        torch.testing.assert_close(st, st_want, **tol(st_want))
+    again = conv3d_cs(x, wt, bt, **kw)
+    assert torch.equal(again[0], got) and torch.equal(again[1], st)
+    # without stats: the same output, no second pass
+    alone = conv3d_cs_packed(xp, w_blk, bt, cout=cout)
+    assert torch.equal(alone, got)
+    regs, blocks = conv3d_cs_resources("packed", h, w, cin)
+    assert 0 < regs <= 128 and blocks >= 2
+
+
+def test_no_production_shape_launches_the_wide_instance(dev):
+    """The full-width fast forward on one (96, 96, 64) window: 18 conv3d_cs
+    launches, 17 on the packed conv's ring, none on its wide instance."""
+    from delivr_cfos_tpu_torch.models.basic_unet import (
+        BasicUNetConfig, build_model, init_state_dict,
+    )
+    from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
+
+    cfg = BasicUNetConfig()
+    model = build_model(init_state_dict(cfg, torch.Generator().manual_seed(0)), cfg, dev)
+    x = torch.rand((1, 96, 96, 64, 1), generator=torch.Generator().manual_seed(1)).to(dev)
+    before = conv3d_cs.launches, conv3d_cs_packed.launches, conv3d_cs_packed.wide_launches
+    with torch.no_grad():
+        apply_cs(model, x * 1000)
+    torch.cuda.synchronize()
+    assert (conv3d_cs.launches - before[0], conv3d_cs_packed.launches - before[1],
+            conv3d_cs_packed.wide_launches - before[2]) == (18, 17, 0)
 
 
 @pytest.mark.parametrize("b,d,h,w,cout,extra", [
@@ -321,8 +400,8 @@ def test_conv3d_cs_planes_wider_than_the_packed_ring_take_the_gather_kernel(dev)
 def test_conv3d_cs_direct_kernel_matches_plain_version(dev, b, d, h, w, cout, extra):
     """The C_in = 1 first conv's kernel: within one bf16 ULP at max(|value|,
     rms) (f32 FMAs of exact bf16 products, summed in another order), stats
-    rtol 1e-3, the same bits on a second launch; the gather kernel on the
-    same inputs within the same bound."""
+    rtol 1e-3, the same bits on a second launch; the wide instance of the
+    packed conv on the same inputs within the same bound."""
     g = torch.Generator().manual_seed(b * 1000 + d * 100 + h * 10 + w + cout)
     x = torch.randn((b, d, 1, h * w), generator=g).to(dev, torch.bfloat16)
     wt = (torch.randn((3, 3, 3, 1, cout), generator=g) * 0.2).to(dev)
@@ -332,11 +411,11 @@ def test_conv3d_cs_direct_kernel_matches_plain_version(dev, b, d, h, w, cout, ex
         aff = ((torch.rand((b, 1), generator=g) + 0.5).to(dev),
                (torch.randn((b, 1), generator=g) * 0.3).to(dev))
     assert conv3d_cs_path(1, 0, w, cout) == "direct"
-    before = conv3d_cs.launches, conv3d_cs_direct.launches, conv3d_cs_gather.launches
+    before = conv3d_cs.launches, conv3d_cs_direct.launches, conv3d_cs_packed.wide_launches
     got, st = conv3d_cs(x, wt, bias, h=h, w=w, emit_stats=True, in_affine=aff)
     torch.cuda.synchronize()
-    assert (conv3d_cs.launches, conv3d_cs_direct.launches, conv3d_cs_gather.launches) == (
-        before[0] + 1, before[1] + 1, before[2])
+    assert (conv3d_cs.launches, conv3d_cs_direct.launches,
+            conv3d_cs_packed.wide_launches) == (before[0] + 1, before[1] + 1, before[2])
     want, st_want = conv3d_cs_reference(x, wt, bias, h=h, w=w, emit_stats=True, in_affine=aff)
     assert _ulps(got, want) <= 1.0
     torch.testing.assert_close(
@@ -344,10 +423,10 @@ def test_conv3d_cs_direct_kernel_matches_plain_version(dev, b, d, h, w, cout, ex
     )
     again = conv3d_cs(x, wt, bias, h=h, w=w, emit_stats=True, in_affine=aff)
     assert torch.equal(again[0], got) and torch.equal(again[1], st)
-    gathered, st_g = conv3d_cs_gather(x, wt, bias, h=h, w=w, emit_stats=True, in_affine=aff)
+    on_wide, st_g = conv3d_cs_wide(x, wt, bias, h=h, w=w, emit_stats=True, in_affine=aff)
     torch.cuda.synchronize()
-    assert conv3d_cs_gather.launches == before[2] + 1
-    assert _ulps(gathered, want) <= 1.0
+    assert conv3d_cs_packed.wide_launches == before[2] + 1
+    assert _ulps(on_wide, want) <= 1.0
     torch.testing.assert_close(
         st_g, st_want, rtol=1e-3, atol=1e-3 * float(st_want.abs().max())
     )
@@ -367,8 +446,8 @@ def test_conv3d_cs_narrow_kernel_matches_plain_version(dev, b, d, h, w, c1, c2, 
                                                        affine):
     """The narrow kernel: within one bf16 ULP at max(|value|, rms) (exact bf16
     products summed in f32 in another order), stats rtol 1e-3 with atol
-    1e-3·max|Σ|, the same bits on a second launch; the gather kernel on the
-    same inputs within the same bound."""
+    1e-3·max|Σ|, the same bits on a second launch; the wide instance of the
+    packed conv on the same inputs within the same bound."""
     g = torch.Generator().manual_seed(b * 1000 + h * 10 + w + c1 * 7 + c2 + cout)
 
     def rnd(*shape, scale=1.0):
@@ -386,21 +465,21 @@ def test_conv3d_cs_narrow_kernel_matches_plain_version(dev, b, d, h, w, c1, c2, 
     bias = rnd(cout)
     assert conv3d_cs_path(c1, c2, w, cout) == "narrow"
     assert 1 <= narrow_band_rows(cin, h, w) <= h
-    before = conv3d_cs.launches, conv3d_cs_narrow.launches, conv3d_cs_gather.launches
+    before = conv3d_cs.launches, conv3d_cs_narrow.launches, conv3d_cs_packed.wide_launches
     got, st = conv3d_cs(x, wt, bias, **kw)
     torch.cuda.synchronize()
-    assert (conv3d_cs.launches, conv3d_cs_narrow.launches, conv3d_cs_gather.launches) == (
-        before[0] + 1, before[1] + 1, before[2])
+    assert (conv3d_cs.launches, conv3d_cs_narrow.launches,
+            conv3d_cs_packed.wide_launches) == (before[0] + 1, before[1] + 1, before[2])
     want, st_want = conv3d_cs_reference(x, wt, bias, **kw)
     assert _ulps(got, want) <= 1.0
     tol = dict(rtol=1e-3, atol=1e-3 * float(st_want.abs().max()))
     torch.testing.assert_close(st, st_want, **tol)
     again = conv3d_cs_narrow(x, wt, bias, **kw)
     assert torch.equal(again[0], got) and torch.equal(again[1], st)
-    gathered, st_g = conv3d_cs_gather(x, wt, bias, **kw)
+    on_wide, st_g = conv3d_cs_wide(x, wt, bias, **kw)
     torch.cuda.synchronize()
-    assert conv3d_cs_gather.launches == before[2] + 1
-    assert _ulps(gathered, want) <= 1.0
+    assert conv3d_cs_packed.wide_launches == before[2] + 1
+    assert _ulps(on_wide, want) <= 1.0
     torch.testing.assert_close(st_g, st_want, **tol)
     regs, blocks = conv3d_cs_resources("narrow", h, w, cin)
     assert 0 < regs <= 128 and blocks >= 2

@@ -27,7 +27,6 @@ from delivr_cfos_tpu_torch.ops.connected_components import label_volume_host
 from delivr_cfos_tpu_torch.ops.conv3d_cs import (
     conv3d_cs,
     conv3d_cs_direct,
-    conv3d_cs_gather,
     conv3d_cs_pack,
     conv3d_cs_packed,
 )
@@ -75,7 +74,7 @@ def _forward_batches(vol, n):
 def test_sharded_fast_inference_on_one_card(dev, n):
     """Full width, fast mode: mean logits within rtol = atol = 1e-4 of the
     single-device run, and every shard's forwards on the kernels: 18
-    conv3d_cs (17 packed, 1 direct, no gather), 17 conv3d_cs_pack and 4
+    conv3d_cs (17 packed, none on the wide instance, 1 direct), 17 conv3d_cs_pack and 4
     deconv2x_cs launches per forward batch, summed over shards."""
     mcfg = BasicUNetConfig(precision="fast")
     model = build_model(init_state_dict(mcfg, torch.Generator().manual_seed(0)), mcfg, dev)
@@ -83,12 +82,12 @@ def test_sharded_fast_inference_on_one_card(dev, n):
     cfg = SlidingWindowConfig(roi=ROI, batch_size=BATCH)
     want, _ = infer_volume(model, vol, cfg, mcfg, return_binary=False)
     conv3d_cs.launches = conv3d_cs_packed.launches = conv3d_cs_direct.launches = 0
-    conv3d_cs_gather.launches = conv3d_cs_pack.launches = deconv2x_cs.launches = 0
+    conv3d_cs_packed.wide_launches = conv3d_cs_pack.launches = deconv2x_cs.launches = 0
     got = sharded_infer_volume(make_mesh({"sp": n}, devices=[dev] * n), model, vol, cfg, mcfg)
     nb = _forward_batches(vol, n)
     assert nb > 0
     assert (conv3d_cs.launches, conv3d_cs_packed.launches, conv3d_cs_direct.launches,
-            conv3d_cs_gather.launches, conv3d_cs_pack.launches, deconv2x_cs.launches) == (
+            conv3d_cs_packed.wide_launches, conv3d_cs_pack.launches, deconv2x_cs.launches) == (
         18 * nb, 17 * nb, nb, 0, 17 * nb, 4 * nb)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 

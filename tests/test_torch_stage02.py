@@ -175,8 +175,8 @@ def test_cuda_requested_without_a_card_raises(brain):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """In a fresh interpreter: tests/conftest.py has imported JAX here. Stages
     1-6, their modules, the runner, the CLI, parallel/*, training/*, the
-    NIfTI and zarr codecs, window packing, the analysis tools, and
-    chip_smoke.py."""
+    NIfTI and zarr codecs, window packing, the analysis tools,
+    chip_smoke.py and the scripts beside it that drive the card."""
     code = (
         "import sys\n"
         "import delivr_cfos_tpu_torch.pipeline.stage02_inference\n"
@@ -220,6 +220,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import delivr_cfos_tpu_torch.analysis.brainrender_render\n"
         "import delivr_cfos_tpu_torch.analysis.napari_loader\n"
         "import chip_smoke\n"
+        "import conv3d_cs_hashes\n"
+        "import conv3d_cs_wide_rows\n"
+        "import conv3d_cs_wide_variants\n"
+        "import nifti_margin_runs\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'delivr_cfos_tpu' or m.startswith('delivr_cfos_tpu.')]\n"
         "print(bad)\n"
