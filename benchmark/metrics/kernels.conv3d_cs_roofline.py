@@ -1,0 +1,26 @@
+"""kernels.conv3d_cs_roofline: the least time of the forward's 18 3×3×3
+convs (the larger of operations at the bf16 peak and bytes at the HBM peak,
+each input byte read once, each output written once, the weights once a
+pass over a volume), at the shapes the model runs times the windows
+forwarded, over the device time (union) of every kernel whose name holds
+"conv3d_cs", the input staging (pack) included. The work is counted from
+the model, not from launches."""
+
+from benchlib.arith import convs_bound_s
+from benchlib.trace import union_seconds
+
+LAYER = "kernels"
+UNIT = "%"
+MOVES = "gvox_per_s"
+
+
+def read(record):
+    if not record["forwards"]:
+        return None
+    spent = union_seconds(record["trace"], lambda name: "conv3d_cs" in name)
+    if spent <= 0:
+        return None
+    cfg = record["config"]
+    least = convs_bound_s(cfg["features"], cfg["window_zyx"], record["forwards"],
+                          weight_reads=record["volumes"] * record["passes"])
+    return 100.0 * least / spent
