@@ -35,6 +35,7 @@ from delivr_cfos_tpu_torch.models.basic_unet import (
     basic_unet_apply,
 )
 from delivr_cfos_tpu_torch.ops.morphology import binarize_logits
+from delivr_cfos_tpu_torch.utils.profiling import annotate, count
 
 SKIP_LOGIT = -1000.0  # constant emitted for background windows (reference)
 _HOST_DEFAULT_BYTES = 16 * 2**30  # assumed device memory off CUDA
@@ -362,26 +363,28 @@ def _forward_windows(model, vol, u16, starts, batch, roi, use_noise,
     forward again."""
     out = []
     perm = None if win_perm is None else (0, *(1 + a for a in win_perm))
+    count("model.windows_forwarded", len(starts))
     for lo in range(0, len(starts), batch):
-        wins = torch.stack(
-            [_values(_window(vol, s, roi), u16) for s in starts[lo : lo + batch]]
-        )
-        if use_noise:
-            noise = torch.randn(
-                wins.shape, generator=gen, device=wins.device,
-                dtype=torch.float32,
+        with annotate("model.forward_batch"):
+            wins = torch.stack(
+                [_values(_window(vol, s, roi), u16) for s in starts[lo : lo + batch]]
             )
-            wins = wins + noise * noise_std
-        if perm is not None:
-            wins = wins.permute(perm)
-        x = wins[..., None]
-        if flip_axis is not None:
-            x = torch.flip(x, dims=(flip_axis + 1,))
-        logits = basic_unet_apply(model, x, model_cfg)
-        if flip_axis is not None:
-            logits = torch.flip(logits, dims=(flip_axis + 1,))
-        logits = logits[..., 0].float()
-        out.append(logits if perm is None else logits.permute(perm))
+            if use_noise:
+                noise = torch.randn(
+                    wins.shape, generator=gen, device=wins.device,
+                    dtype=torch.float32,
+                )
+                wins = wins + noise * noise_std
+            if perm is not None:
+                wins = wins.permute(perm)
+            x = wins[..., None]
+            if flip_axis is not None:
+                x = torch.flip(x, dims=(flip_axis + 1,))
+            logits = basic_unet_apply(model, x, model_cfg)
+            if flip_axis is not None:
+                logits = torch.flip(logits, dims=(flip_axis + 1,))
+            logits = logits[..., 0].float()
+            out.append(logits if perm is None else logits.permute(perm))
     return torch.cat(out)
 
 
@@ -515,9 +518,10 @@ def _grid_starts(dims) -> np.ndarray:
 def _active_mask(vol, u16, starts, roi, threshold) -> np.ndarray:
     """Which windows hold a voxel above ``threshold`` (the others are
     background and skip the model); one host sync."""
-    maxes = torch.stack(
-        [_values(_window(vol, s, roi), u16).amax() for s in starts]
-    ).cpu().numpy()
+    with annotate("model.background_test"):
+        maxes = torch.stack(
+            [_values(_window(vol, s, roi), u16).amax() for s in starts]
+        ).cpu().numpy()
     return maxes > threshold
 
 
@@ -531,30 +535,31 @@ def _accumulate(model, vol, u16, acc, cnt, dims, interval, gens, cfg, batch,
     ``gens``: one noise generator per pass, or one generator for all passes
     in turn. ``active_mask``: the windows' background test when the caller
     made it already (``_active_mask``)."""
-    roi = tuple(cfg.roi)
-    starts = _grid_starts(dims)
-    if active_mask is None:
-        active_mask = _active_mask(vol, u16, starts, roi, cfg.background_threshold)
-    passes = _tta_passes(cfg)
-    if isinstance(gens, torch.Generator):
-        gens = [gens] * len(passes)
+    with annotate("model.accumulate"):
+        roi = tuple(cfg.roi)
+        starts = _grid_starts(dims)
+        if active_mask is None:
+            active_mask = _active_mask(vol, u16, starts, roi, cfg.background_threshold)
+        passes = _tta_passes(cfg)
+        if isinstance(gens, torch.Generator):
+            gens = [gens] * len(passes)
 
-    if _dense_applicable(roi, interval):
-        plan = _DensePlan(dims, roi, interval)
-        _infer_dense(model, vol, u16, acc, cnt, starts, active_mask, plan,
-                     gens, cfg, passes, batch, roi, model_cfg, imp, win_perm)
-        return
-    _skip_accumulate(acc, cnt, starts[~active_mask], roi, len(passes), imp)
-    active = starts[active_mask]
-    chunk = _forward_chunk_batches(roi, batch, acc.device) * batch
-    for (use_noise, flip_axis), gen in zip(passes, gens):
-        for lo in range(0, len(active), chunk):
-            flat = _forward_windows(
-                model, vol, u16, active[lo : lo + chunk], batch, roi,
-                use_noise, flip_axis, cfg.tta_noise_std, gen, model_cfg,
-                win_perm,
-            )
-            _tail_accumulate(
-                acc, cnt, flat, range(flat.shape[0]),
-                active[lo : lo + chunk], roi, imp,
-            )
+        if _dense_applicable(roi, interval):
+            plan = _DensePlan(dims, roi, interval)
+            _infer_dense(model, vol, u16, acc, cnt, starts, active_mask, plan,
+                         gens, cfg, passes, batch, roi, model_cfg, imp, win_perm)
+            return
+        _skip_accumulate(acc, cnt, starts[~active_mask], roi, len(passes), imp)
+        active = starts[active_mask]
+        chunk = _forward_chunk_batches(roi, batch, acc.device) * batch
+        for (use_noise, flip_axis), gen in zip(passes, gens):
+            for lo in range(0, len(active), chunk):
+                flat = _forward_windows(
+                    model, vol, u16, active[lo : lo + chunk], batch, roi,
+                    use_noise, flip_axis, cfg.tta_noise_std, gen, model_cfg,
+                    win_perm,
+                )
+                _tail_accumulate(
+                    acc, cnt, flat, range(flat.shape[0]),
+                    active[lo : lo + chunk], roi, imp,
+                )

@@ -46,6 +46,7 @@ from delivr_cfos_tpu_torch.engine.sliding_window import (
 from delivr_cfos_tpu_torch.models.basic_unet import BasicUNet, BasicUNetConfig
 from delivr_cfos_tpu_torch.ops.morphology import binary_erosion_cross
 from delivr_cfos_tpu_torch.parallel.sharded_inference import sharded_accumulate
+from delivr_cfos_tpu_torch.utils.profiling import annotate
 
 ENGINE = "delivr_cfos_tpu_torch"  # sidecars of other engines never match
 SLAB_Z_STARTS = 4  # window grid rows per slab, at most
@@ -192,9 +193,10 @@ class _SlabLoader:
 
     def take(self, z0: int, z1: int):
         """(slab [z0, z1) on the device, whether it holds uint16 bits)."""
-        if self._bounds != (z0, z1):
-            self.start(z0, z1)
-        self.worker.wait()
+        with annotate("stream.slab_wait"):
+            if self._bounds != (z0, z1):
+                self.start(z0, z1)
+            self.worker.wait()
         dev, u16, ready = self._out
         self._out = self._bounds = None
         if ready is not None:
@@ -244,10 +246,12 @@ class _ChunkWriter:
                                "finalized": finalized}, f)
                 os.replace(tmp, self._path)
 
+        self.wait()  # the previous chunk's copies and writes
         self.worker.submit(job)
 
     def wait(self) -> None:
-        self.worker.wait()
+        with annotate("stream.writer_wait"):
+            self.worker.wait()
 
 
 def _resume_point(path, sig, z_starts, slab_z_starts, n_slabs, roi_z):
@@ -354,87 +358,90 @@ def infer_volume_streaming(model: BasicUNet, volume,
     carry_acc = carry_cnt = None  # planes [slab_z0, ...) of the next slab
     try:
         for slab_i in range(start_slab, n_slabs):
-            slab_z0, slab_z1 = bounds(slab_i)
-            vol, u16 = loader.take(slab_z0, slab_z1)
-            if prefetch and slab_i + 1 < n_slabs:
-                loader.start(*bounds(slab_i + 1))
-            starts_z = z_starts[slab_i * slab_z_starts : (slab_i + 1) * slab_z_starts]
+            with annotate("stream.slab"):
+                slab_z0, slab_z1 = bounds(slab_i)
+                vol, u16 = loader.take(slab_z0, slab_z1)
+                if prefetch and slab_i + 1 < n_slabs:
+                    loader.start(*bounds(slab_i + 1))
+                starts_z = z_starts[slab_i * slab_z_starts : (slab_i + 1) * slab_z_starts]
 
-            acc, cnt = _zero_accumulators(tuple(vol.shape), imp, device)
-            if carry_acc is not None:
-                acc[: carry_acc.shape[0]].copy_(carry_acc)
-                cnt[: carry_cnt.shape[0]].copy_(carry_cnt)
-            if mesh is None:
-                gen = torch.Generator(device=device)
-                gen.manual_seed(_slab_seed(cfg.seed, slab_i))
-                dims = [[z - slab_z0 for z in starts_z], ys, xs]
-                _accumulate(model, vol, u16, acc, cnt, dims, interval, gen, cfg,
-                            batch, model_cfg, imp)
-            else:
-                acc_s, cnt_s = sharded_accumulate(
-                    mesh, model, vol, cfg, model_cfg, mesh_axis,
-                    seed=_slab_seed(cfg.seed, slab_i), batch=batch, u16=u16,
-                )
-                acc += acc_s
-                cnt += cnt_s
-                del acc_s, cnt_s
+                acc, cnt = _zero_accumulators(tuple(vol.shape), imp, device)
+                if carry_acc is not None:
+                    acc[: carry_acc.shape[0]].copy_(carry_acc)
+                    cnt[: carry_cnt.shape[0]].copy_(carry_cnt)
+                if mesh is None:
+                    gen = torch.Generator(device=device)
+                    gen.manual_seed(_slab_seed(cfg.seed, slab_i))
+                    dims = [[z - slab_z0 for z in starts_z], ys, xs]
+                    _accumulate(model, vol, u16, acc, cnt, dims, interval, gen, cfg,
+                                batch, model_cfg, imp)
+                else:
+                    acc_s, cnt_s = sharded_accumulate(
+                        mesh, model, vol, cfg, model_cfg, mesh_axis,
+                        seed=_slab_seed(cfg.seed, slab_i), batch=batch, u16=u16,
+                    )
+                    acc += acc_s
+                    cnt += cnt_s
+                    del acc_s, cnt_s
 
-            # voxels below the next slab's first window start get no more
-            # contributions: [finalized, next_z0) is final
-            next_z0 = z_starts[(slab_i + 1) * slab_z_starts] if slab_i + 1 < n_slabs else z_img
-            fin_hi = next_z0 - slab_z0
-            nz = _nonzero(vol[:, :real_y, :real_x], u16) if ero_on_device else None
-            if slab_i >= regen_before_slab:
-                # a regenerated slab's outputs are already on disk
-                write_lo, write_hi = finalized, min(next_z0, real_z)
-                pairs = []
-                if write_hi > write_lo:
-                    lo = write_lo - slab_z0
-                    sl = (slice(lo, lo + write_hi - write_lo), slice(0, real_y),
-                          slice(0, real_x))
-                    mean = _divide(acc[sl], cnt[sl])
-                    sig_c = torch.sigmoid(mean)
-                    seg = (sig_c >= cfg.threshold).to(torch.uint8)
-                    ctx_lo, ctx_hi = max(write_lo - E, 0), min(write_hi + E, real_z)
-                    if ero_on_device:
-                        lo_off = ctx_lo - slab_z0
-                        ctx = nz[max(lo_off, 0) : ctx_hi - slab_z0]
-                        if lo_off < 0:  # planes below the slab: the carry
-                            ctx = torch.cat([ero_carry[lo_off:], ctx])
-                    else:
-                        ctx = torch.from_numpy(
-                            np.asarray(volume[ctx_lo:ctx_hi, :real_y, :real_x]) > 0
-                        ).to(device)
-                    mask = binary_erosion_cross(ctx, E)[
-                        write_lo - ctx_lo : write_hi - ctx_lo
-                    ]
-                    pairs.append((binary_out, seg * mask))
-                    if sigmoid_out is not None:
-                        pairs.append((sigmoid_out, sig_c))
-                    if logits_out is not None:
-                        pairs.append((logits_out, mean))
-                writer.submit(pairs, write_lo, write_hi, slab_i + 1, next_z0)
-            finalized = next_z0
+                # voxels below the next slab's first window start get no more
+                # contributions: [finalized, next_z0) is final
+                next_z0 = (z_starts[(slab_i + 1) * slab_z_starts] if slab_i + 1 < n_slabs
+                           else z_img)
+                fin_hi = next_z0 - slab_z0
+                nz = _nonzero(vol[:, :real_y, :real_x], u16) if ero_on_device else None
+                if slab_i >= regen_before_slab:
+                    # a regenerated slab's outputs are already on disk
+                    write_lo, write_hi = finalized, min(next_z0, real_z)
+                    pairs = []
+                    if write_hi > write_lo:
+                        with annotate("stream.finalize"):
+                            lo = write_lo - slab_z0
+                            sl = (slice(lo, lo + write_hi - write_lo), slice(0, real_y),
+                                  slice(0, real_x))
+                            mean = _divide(acc[sl], cnt[sl])
+                            sig_c = torch.sigmoid(mean)
+                            seg = (sig_c >= cfg.threshold).to(torch.uint8)
+                            ctx_lo, ctx_hi = max(write_lo - E, 0), min(write_hi + E, real_z)
+                            if ero_on_device:
+                                lo_off = ctx_lo - slab_z0
+                                ctx = nz[max(lo_off, 0) : ctx_hi - slab_z0]
+                                if lo_off < 0:  # planes below the slab: the carry
+                                    ctx = torch.cat([ero_carry[lo_off:], ctx])
+                            else:
+                                ctx = torch.from_numpy(
+                                    np.asarray(volume[ctx_lo:ctx_hi, :real_y, :real_x]) > 0
+                                ).to(device)
+                            mask = binary_erosion_cross(ctx, E)[
+                                write_lo - ctx_lo : write_hi - ctx_lo
+                            ]
+                            pairs.append((binary_out, seg * mask))
+                            if sigmoid_out is not None:
+                                pairs.append((sigmoid_out, sig_c))
+                            if logits_out is not None:
+                                pairs.append((logits_out, mean))
+                    writer.submit(pairs, write_lo, write_hi, slab_i + 1, next_z0)
+                finalized = next_z0
 
-            if slab_i + 1 == n_slabs:
-                break
-            # carry the tail [next_z0, slab_z1) forward to the head of the
-            # next slab, which starts at next_z0; copies, so this slab's
-            # accumulators are freed
-            carry_acc, carry_cnt = acc[fin_hi:].clone(), cnt[fin_hi:].clone()
-            del acc, cnt
-            if ero_on_device:
-                lo = max(next_z0 - E, 0)
-                body = nz[max(lo, slab_z0) - slab_z0 : fin_hi]
-                if lo < slab_z0:
-                    if ero_carry is None:
-                        # resume: a regenerated slab has no carry chain; the
-                        # planes below it come from the host volume
-                        ero_carry = torch.from_numpy(
-                            np.asarray(volume[lo:slab_z0, :real_y, :real_x]) > 0
-                        ).to(device)
-                    body = torch.cat([ero_carry[lo - slab_z0 :], body])
-                ero_carry = body.clone()
+                if slab_i + 1 == n_slabs:
+                    break
+                # carry the tail [next_z0, slab_z1) forward to the head of the
+                # next slab, which starts at next_z0; copies, so this slab's
+                # accumulators are freed
+                carry_acc, carry_cnt = acc[fin_hi:].clone(), cnt[fin_hi:].clone()
+                del acc, cnt
+                if ero_on_device:
+                    lo = max(next_z0 - E, 0)
+                    body = nz[max(lo, slab_z0) - slab_z0 : fin_hi]
+                    if lo < slab_z0:
+                        if ero_carry is None:
+                            # resume: a regenerated slab has no carry chain; the
+                            # planes below it come from the host volume
+                            ero_carry = torch.from_numpy(
+                                np.asarray(volume[lo:slab_z0, :real_y, :real_x]) > 0
+                            ).to(device)
+                        body = torch.cat([ero_carry[lo - slab_z0 :], body])
+                    ero_carry = body.clone()
         writer.wait()
     finally:
         # no worker outlives the call, even when the compute loop raised

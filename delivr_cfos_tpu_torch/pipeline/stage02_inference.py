@@ -54,6 +54,7 @@ from delivr_cfos_tpu_torch.utils.device import resolve_device
 from delivr_cfos_tpu_torch.utils.io.nifti import read_nifti
 from delivr_cfos_tpu_torch.utils.io.npy import open_memmap
 from delivr_cfos_tpu_torch.utils.logging import log
+from delivr_cfos_tpu_torch.utils.profiling import annotate
 
 IN_PROGRESS = "inference_in_progress"
 RESUME_SIDECAR = "streaming_resume.json"
@@ -113,6 +114,13 @@ def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
     ``[device]`` off CUDA) where there are as many, and runs on ``device``
     with a warning where there are not. With a mesh, the model and the
     outputs live on its first device."""
+    with annotate("stream.run_inference"):
+        return _run_inference(cfg, mouse_name, stack_shape, params, model_cfg, device,
+                              mesh, devices)
+
+
+def _run_inference(cfg, mouse_name, stack_shape, params, model_cfg, device, mesh,
+                   devices) -> str:
     device = resolve_device(device)
     bd = cfg.blob_detection
     if mesh is not None:
@@ -148,13 +156,14 @@ def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
     whole_volume_ok = cfg.FLAGS.LOAD_ALL_RAM and volume.size * 10 < device_bytes
     os.makedirs(binaries_path, exist_ok=True)
 
-    if params is None:
-        log("Loading weights", bd.model_location)
-        params = load_weights(bd.model_location)
-    if model_cfg is None:
-        model_cfg, mode = resolve_model_config(bd, params, device)
-        log(f"Model precision mode: {mode} on {device}")
-    model = build_model(params, model_cfg, device)
+    with annotate("stream.build_model"):
+        if params is None:
+            log("Loading weights", bd.model_location)
+            params = load_weights(bd.model_location)
+        if model_cfg is None:
+            model_cfg, mode = resolve_model_config(bd, params, device)
+            log(f"Model precision mode: {mode} on {device}")
+        model = build_model(params, model_cfg, device)
 
     sw_cfg = sliding_window_config(cfg)
     log(

@@ -2,15 +2,13 @@
 ``delivr_cfos_tpu/utils/logging.py``).
 
 The reference logs ``{datetime.now()} : message`` lines and measures stages
-with ad-hoc wall-clock deltas (SURVEY.md §5.1). The line format stays; a
-structured ``StageTimer`` can be dumped as JSON for profiling and regression
-tracking.
+with ad-hoc wall-clock deltas (SURVEY.md §5.1). The line format stays;
+``StageTimer`` collects the runner's per-stage seconds.
 """
 
 from __future__ import annotations
 
 import datetime
-import json
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
@@ -42,7 +40,3 @@ class StageTimer:
             dt = time.perf_counter() - t0
             self.spans[full] = self.spans.get(full, 0.0) + dt
             log(f"[timing] {full}: {dt:.3f}s")
-
-    def dump(self, path: str) -> None:
-        with open(path, "w") as f:
-            json.dump(self.spans, f, indent=2, sort_keys=True)

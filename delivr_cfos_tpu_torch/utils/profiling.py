@@ -6,15 +6,28 @@ the whole run is a switch: set ``$DELIVR_TRACE_DIR`` (the JAX package's
 switch) and ``trace()`` writes a Chrome trace (chrome://tracing, Perfetto)
 of the host's operators and, where there is a card, its kernels into that
 directory.
+
+Inside the program, ``annotate`` spans and ``count`` counters mark its
+layers on the same timeline as the device's work. Both act only while a
+profiler records on the calling thread (``trace()``, or any
+``torch.profiler.profile`` around the call); otherwise each costs one
+boolean check. The streaming engine's loader and writer threads record
+nothing: their effect shows as the compute thread's wait spans.
 """
 
 from __future__ import annotations
 
 import os
+import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 
 import torch
+from torch.autograd import _profiler_enabled
+
+_OFF = nullcontext()
+_counts: dict[str, int] = {}
+_counts_lock = threading.Lock()
 
 
 @contextmanager
@@ -27,6 +40,7 @@ def trace(trace_dir: str | None = None):
         yield
         return
     os.makedirs(trace_dir, exist_ok=True)
+    take_counters()  # a session reads only its own counts
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -38,5 +52,26 @@ def trace(trace_dir: str | None = None):
 
 
 def annotate(name: str):
-    """Named region in profiler timelines (``record_function``)."""
+    """Named region in profiler timelines (``record_function``) while a
+    profiler records on this thread; a shared no-op context otherwise."""
+    if not _profiler_enabled():
+        return _OFF
     return torch.profiler.record_function(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``, while a profiler records on this
+    thread; nothing otherwise."""
+    if not _profiler_enabled():
+        return
+    with _counts_lock:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def take_counters() -> dict[str, int]:
+    """The counts kept since the last call (or since ``trace()`` began),
+    which are cleared."""
+    with _counts_lock:
+        out = dict(_counts)
+        _counts.clear()
+    return out
