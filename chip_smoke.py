@@ -110,8 +110,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 6. stage2  — run_inference on the (192, 480, 384) uint16 half-bright volume
              with precision 'auto' (fast on CUDA) and TTA off, then parity;
              checks the kernel launch counts (18 conv3d_cs, of which 17
-             packed and 1 direct, 17 conv3d_cs_pack and 4 deconv2x_cs per
-             forward batch, none on the wide instance),
+             packed and 1 direct, 17 conv3d_cs_pack, 18 affine_mish_cs and
+             4 deconv2x_cs per forward batch, none on the wide instance),
              binaries.npy, and that fast and parity binaries differ only
              inside the measured logit margin; one more fast run under
              torch.profiler gives the device time by kernel (phase
@@ -128,6 +128,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              and level-4 shapes in bf16 (one ULP at max(|value|, rms)).
              Times the kernel, the plain version and F.instance_norm +
              F.mish (a yardstick only; the port never calls them).
+8a. affine_mish — affine_mish_cs, the fast forward's epilogue, against its
+             plain version at the 18 epilogue shapes of the full-width fast
+             forward at the stage-2 window batch: every element within one
+             bf16 ULP at the plain value's own magnitude. Each row gives
+             the kernel's device ms, its bound (4 bytes an element at the
+             HBM peak) and the fraction of it reached, the plain version's
+             seven passes (ms) and F.mish on the bf16 tensor without the
+             affine (a yardstick only); an "affine_mish_sum" line sums the
+             18, one forward batch.
 9. fallback — fast mode on 4 windows of (100, 100, 60), which do not divide
              by 16, with fused_in_mish: the bf16 forward on the bf16 kernel,
              against the f32 parity forward with phase 4's bound; then the
@@ -259,7 +268,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              seconds a step.
 14. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
              conv3d_cs_direct, conv3d_cs_narrow with phase 4b's launches,
-             conv3d_cs_pack, instance_norm_mish, deconv2x_cs; conv3d_cs and
+             conv3d_cs_pack, instance_norm_mish, affine_mish_cs with stage
+             2's launches and phase 8a's sums, deconv2x_cs; conv3d_cs and
              conv3d_cs_pack carry a "padded" field: phase 4c's launches on
              pad slots and the sums over its 6 shapes with pad slots;
              conv3d_cs a "wide" field: phase 4d's launches on the wide
@@ -759,6 +769,7 @@ def profile_summary(prof, wall_s, top=12):
     conv_ms = sum(r[0] for r in rows if "conv3d_cs" in r[2]) - pack_ms
     direct = [r for r in rows if "conv3d_cs_direct_kernel" in r[2]]
     deconv_ms = sum(r[0] for r in rows if "deconv2x_cs" in r[2])
+    affine_mish_ms = sum(r[0] for r in rows if "affine_mish_cs_kernel" in r[2])
     return dict(phase="profile", wall_s=wall_s, device_busy_ms=busy_ms,
                 device_idle_share=1.0 - busy_ms / 1e3 / wall_s,
                 conv3d_cs_ms=conv_ms, conv3d_cs_pack_ms=pack_ms,
@@ -768,7 +779,8 @@ def profile_summary(prof, wall_s, top=12):
                                if "conv3d_cs_packed_wide_kernel" in r[2]],
                 narrow_kernel=[[r[2][:70], r[1]] for r in rows
                                if "conv3d_cs_narrow_kernel" in r[2]],
-                deconv2x_cs_ms=deconv_ms, library_transposed_conv=transposed,
+                deconv2x_cs_ms=deconv_ms, affine_mish_cs_ms=affine_mish_ms,
+                library_transposed_conv=transposed,
                 library_conv=library_conv,
                 top=[[name[:70], round(ms, 3), n] for ms, n, name in rows[:top]])
 
@@ -901,6 +913,72 @@ def check_in_mish(card, name, n, c, d, h, w, dtype, chunk=8):
         raise AssertionError(f"instance_norm_mish disagrees with its plain version: {row}")
     del x, got
     return row
+
+
+def ulp_error_own(got, want):
+    """Largest |got − want| in bf16 ULPs at each plain value's own magnitude
+    (bf16's subnormal spacing, 2^-133, below 2^-126)."""
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0**-126))) - 7)
+    return float(((g - w).abs() / ulp).max()), float((g - w).abs().max())
+
+
+def check_affine_mish(card, name, b, d, c, s, chunk=8):
+    """One affine_mish_cs case against the plain version, at full batch as
+    the fast forward ran it before the kernel; returns a row."""
+    from delivr_cfos_tpu_torch.ops.affine_mish_cs import (
+        affine_mish_cs, affine_mish_cs_reference,
+    )
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(zlib.crc32(name.encode()))
+    x = torch.randn((b, d, c, s), generator=g, device=dev, dtype=torch.bfloat16)
+    x.mul_(2.0)
+    a = torch.rand((b, c), generator=g, device=dev) + 0.25
+    cc = torch.randn((b, c), generator=g, device=dev)
+    got = affine_mish_cs(x, a, cc)
+    want = affine_mish_cs_reference(x, a, cc)
+    ulps = err = 0.0
+    for lo in range(0, b, chunk):
+        u, e = ulp_error_own(got[lo:lo + chunk], want[lo:lo + chunk])
+        ulps, err = max(ulps, u), max(err, e)
+    finite = bool(torch.isfinite(got.float()).all())
+    del want
+    # the plain version's seven passes, timed once its buffers are cached
+    ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    affine_mish_cs_reference(x, a, cc)
+    ev1.record()
+    torch.cuda.synchronize()
+    plain_ms = ev0.elapsed_time(ev1)
+    ms = device_ms(lambda: affine_mish_cs(x, a, cc))
+    # yardstick: PyTorch's own bf16 mish, without the affine, which the port
+    # never calls
+    library_ms = device_ms(lambda: torch.nn.functional.mish(x))
+    nbytes = 4.0 * x.numel()
+    bound = 1e3 * nbytes / PEAK_BYTES
+    row = dict(phase="affine_mish", card=card, case=name, shape=[b, d, c, s],
+               max_ulps=ulps, max_abs_err=err, finite=finite, ms=ms, bound_ms=bound,
+               bound_by="bytes", fraction_of_bound=bound / ms,
+               gbytes_per_s=nbytes / ms / 1e6, plain_ms=plain_ms, library_ms=library_ms)
+    emit(row)
+    if ulps > 1.0 or not finite:
+        raise AssertionError(f"affine_mish_cs disagrees with its plain version: {row}")
+    del x, got
+    return row
+
+
+def affine_mish_rows(card, features, roi, batch):
+    """Phase 8a: the kernel at the 18 epilogue shapes of one forward batch
+    (the outputs of conv_shapes' convs), and their sum."""
+    rows = [check_affine_mish(card, n, batch, d, co, h * w)
+            for n, _, _, _, co, d, h, w in conv_shapes(features, roi)]
+    torch.cuda.empty_cache()
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+    emit(dict(phase="affine_mish_sum", card=card, shapes=len(rows), batch=batch,
+              max_ulps=max(r["max_ulps"] for r in rows),
+              fraction_of_bound=total["bound_ms"] / total["ms"], **total))
+    return rows
 
 
 def stream_phase(card, sd, dev):
@@ -3008,6 +3086,7 @@ def main() -> int:
     )
     from delivr_cfos_tpu_torch.models.basic_unet_cs import apply_cs
     from delivr_cfos_tpu_torch.ops import _build
+    from delivr_cfos_tpu_torch.ops.affine_mish_cs import affine_mish_cs
     from delivr_cfos_tpu_torch.ops.conv3d_cs import (
         conv3d_cs, conv3d_cs_direct, conv3d_cs_pack, conv3d_cs_packed,
         conv3d_cs_path,
@@ -3119,9 +3198,10 @@ def main() -> int:
         write_brain(tmp, vol)
         conv3d_cs.launches = deconv2x_cs.launches = conv3d_cs_pack.launches = 0
         conv3d_cs_packed.launches = conv3d_cs_direct.launches = conv3d_cs_packed.wide_launches = 0
-        conv3d_cs_pack.padded_launches = 0
+        conv3d_cs_pack.padded_launches = affine_mish_cs.launches = 0
         sec_fast, peak_fast, bin_fast, sig_fast = stage2(tmp, "fast", sd)
         launches, deconv_launches = conv3d_cs.launches, deconv2x_cs.launches
+        am_launches = affine_mish_cs.launches
         pack_launches, pack_padded = conv3d_cs_pack.launches, conv3d_cs_pack.padded_launches
         packed_launches, direct_launches = conv3d_cs_packed.launches, conv3d_cs_direct.launches
         wide_launches = conv3d_cs_packed.wide_launches
@@ -3157,6 +3237,7 @@ def main() -> int:
               conv3d_cs_pack_launches=pack_launches,
               conv3d_cs_pack_padded_launches=pack_padded,
               deconv2x_cs_launches=deconv_launches,
+              affine_mish_cs_launches=am_launches,
               seconds_fast=sec_fast, seconds_fast_warm=sec_fast_warm,
               gvox_per_s_fast=n_vox / sec_fast_warm / 1e9,
               seconds_parity=sec_parity, gvox_per_s_parity=n_vox / sec_parity / 1e9,
@@ -3176,6 +3257,9 @@ def main() -> int:
     if deconv_launches != 4 * n_batches:
         raise AssertionError(
             f"{deconv_launches} deconv2x_cs launches != 4 × {n_batches} batches")
+    if am_launches != 18 * n_batches:
+        raise AssertionError(
+            f"{am_launches} affine_mish_cs launches != 18 × {n_batches} batches")
     if (fast_profile["wide_kernel"] or fast_profile["narrow_kernel"]
             or not fast_profile["conv3d_cs_direct_launches"]):
         raise AssertionError("the fast stage 2 ran the wide instance or the narrow kernel, "
@@ -3217,6 +3301,9 @@ def main() -> int:
     bf16_rows = [check_in_mish(smi, f"{n}/bf16", batch, co, d, h, w, torch.bfloat16)
                  for n, lvl, _, _, co, d, h, w in (shapes[1], shapes[9])]
     torch.cuda.empty_cache()
+
+    # --- 8a. affine_mish_cs vs plain at the fast forward's epilogues --------
+    am_rows = affine_mish_rows(smi, fast_cfg.features, ROI, batch)
 
     # --- 9. fast fallback: bf16 forward with the fused epilogue -------------
     fz, fy, fx = FALLBACK_WINDOW
@@ -3398,6 +3485,23 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in f32_rows),
         "bound_by": "bytes",
         "library_ms": sum(r["library_ms"] for r in f32_rows),
+    }, {
+        "name": "affine_mish_cs",
+        "route": "cuda",
+        "source": "delivr_cfos_tpu_torch/csrc/affine_mish_cs.cu",
+        # an XLA fusion on the TPU, not a Pallas kernel
+        "replaces": "delivr_cfos_tpu/models/basic_unet_cs.py:108",
+        "launches": am_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in am_rows),
+        "max_ulps": max(r["max_ulps"] for r in am_rows),
+        # one fast forward batch: the sum over its 18 epilogue shapes
+        "ms": sum(r["ms"] for r in am_rows),
+        "plain_ms": sum(r["plain_ms"] for r in am_rows),
+        "bound_ms": sum(r["bound_ms"] for r in am_rows),
+        "bound_by": "bytes",
+        "fraction_of_bound": (sum(r["bound_ms"] for r in am_rows)
+                              / sum(r["ms"] for r in am_rows)),
+        "library_ms": sum(r["library_ms"] for r in am_rows),
     }, {
         "name": "deconv2x_cs",
         "route": "cuda",

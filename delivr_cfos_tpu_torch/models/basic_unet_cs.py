@@ -8,9 +8,10 @@ output. Same math as the MONAI eval pass (``basic_unet.BasicUNet``); only
 roundings and summation orders differ.
 
 Every 3×3×3 conv of the forward, levels 3 and 4 included, runs through
-conv3d_cs, and the four UpCat deconvs through deconv2x_cs, which writes its
-output in the (B, 2D, O, 4S) layout the next conv reads. The JAX package
-sends planes under 256 voxels to XLA instead
+conv3d_cs, each InstanceNorm + mish after it through affine_mish_cs (one
+pass, bf16 in and out), and the four UpCat deconvs through deconv2x_cs,
+which writes its output in the (B, 2D, O, 4S) layout the next conv reads.
+The JAX package sends planes under 256 voxels to XLA instead
 (``_PALLAS_MIN_PLANE``); that gate served the TPU's lane layout and has no
 counterpart on the card. The difference stays at bf16 rounding level.
 """
@@ -18,9 +19,9 @@ counterpart on the card. The difference stays at bf16 rounding level.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from delivr_cfos_tpu_torch.models.basic_unet import IN_EPS, BasicUNet
+from delivr_cfos_tpu_torch.ops.affine_mish_cs import affine_mish_cs
 from delivr_cfos_tpu_torch.ops.conv3d_cs import conv3d_cs
 from delivr_cfos_tpu_torch.ops.deconv2x_cs import deconv2x_cs
 from delivr_cfos_tpu_torch.utils.device import full_f32
@@ -42,13 +43,6 @@ def _in_affine_from_stats(stats, scale, bias, n_vox):
     a = inv * scale.detach().float()[None, :]
     c = bias.detach().float()[None, :] - mean * a
     return a, c
-
-
-def _affine_mish_cs(x, a, c):
-    """bf16(mish(x·a + c)) per (B, C), computed in f32 in place (two
-    full-size f32 temporaries at most)."""
-    v = x.float().mul_(a[:, None, :, None]).add_(c[:, None, :, None])
-    return v.mul_(F.softplus(v).tanh_()).to(torch.bfloat16)
 
 
 def _conv_stats_cs(x, conv, h, wd, pair=None):
@@ -75,10 +69,10 @@ def _two_conv_cs(x, block, h, wd, pair=None):
     n_vox = x.shape[1] * h * wd  # (D, S) per (B, C)
     y0, st0 = _conv_stats_cs(x, c0.conv, h, wd, pair=pair)
     a0, b0 = _in_affine_from_stats(st0, c0.adn.N.weight, c0.adn.N.bias, n_vox)
-    y0 = _affine_mish_cs(y0, a0, b0)
+    y0 = affine_mish_cs(y0, a0, b0)
     y1, st1 = _conv_stats_cs(y0, c1.conv, h, wd)
     a1, b1 = _in_affine_from_stats(st1, c1.adn.N.weight, c1.adn.N.bias, n_vox)
-    return _affine_mish_cs(y1, a1, b1)
+    return affine_mish_cs(y1, a1, b1)
 
 
 def _maxpool2_cs(x, h, wd):

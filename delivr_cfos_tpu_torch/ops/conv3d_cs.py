@@ -245,7 +245,7 @@ def conv3d_cs_packed_reference(xp, w_blk, bias, *, cout, emit_stats=False):
     if bias is not None:
         y = y + bias.float()[None, :, None, None, None]
     y = y.permute(0, 2, 1, 3, 4).reshape(b_, d, cout, h * w)
-    out = y.to(torch.bfloat16)
+    out = y.to(torch.bfloat16, memory_format=torch.contiguous_format)  # as the kernel's
     if not emit_stats:
         return out
     return out, torch.stack([y.sum(dim=3), (y * y).sum(dim=3)], dim=2)
