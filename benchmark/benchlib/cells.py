@@ -1,7 +1,8 @@
 """Cells by name: ``BENCHMARK.json`` names each cell's configuration and
 traffic mix, and the harness finds their files, the per-layer metrics'
-readers and the reference module by those names alone, so a later cell,
-mix, metric or reference is a new file and a new entry, never an edit."""
+readers, and the model and reference modules that a configuration names,
+by those names alone, so a later cell, mix, metric, model or reference is a
+new file and a new entry, never an edit."""
 
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ def _applies(metric: dict, workload: str) -> bool:
 def find_cell(workload: str, root: str = REPO_ROOT) -> Cell:
     """The cell named ``workload``, its configuration from the file its
     ``configs`` entry names and its traffic from ``benchmark/traffic/``,
-    whose volume lies on the configuration's plane."""
+    whose volume lies on the configuration's plane. The configuration names
+    its model module under ``model``."""
     spec = benchmark_spec(root)
     cells = {w["name"]: w for w in spec["workloads"]}
     if workload not in cells:
@@ -51,6 +53,9 @@ def find_cell(workload: str, root: str = REPO_ROOT) -> Cell:
     w = cells[workload]
     configs = {c["name"]: c for c in spec["configs"]}
     config = load_json(os.path.join(root, configs[w["config"]]["file"]))
+    if "model" not in config:
+        raise ValueError(f"{workload}: the configuration {w['config']!r} names no model "
+                         "(a module of benchmark/models/)")
     traffic = load_json(os.path.join(root, "benchmark", "traffic", f"{w['traffic']}.json"))
     if list(traffic["volume_zyx"][1:]) != list(config["plane_yx"]):
         raise ValueError(f"{workload}: the traffic's plane {traffic['volume_zyx'][1:]} is not "
@@ -87,3 +92,13 @@ def reference_module(config: dict, root: str = REPO_ROOT):
     name = config["reference"]
     path = os.path.join(root, "benchmark", "reference", f"{name}.py")
     return _load_module(path, "bench_reference_" + name)
+
+
+def model_module(config: dict, root: str = REPO_ROOT):
+    """The model module that the configuration names,
+    ``benchmark/models/<model>.py``: ``state_shapes``, ``forward_flops``,
+    ``conv3d_cs_shapes`` and ``TINY``, each read from the configuration
+    (``benchmark/models/basic_unet.py`` states them)."""
+    name = config["model"]
+    path = os.path.join(root, "benchmark", "models", f"{name}.py")
+    return _load_module(path, "bench_model_" + name)

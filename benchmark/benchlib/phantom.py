@@ -90,18 +90,30 @@ def make_phantom(traffic: dict, seed: int, device) -> torch.Tensor:
     return vol.to(torch.int32)
 
 
+def nucleus_centres(tissue: torch.Tensor, n: int, g: torch.Generator) -> torch.Tensor:
+    """float64 (n, 3): ``n`` points in the tissue's voxels, drawn from
+    ``g`` uniformly over the volume in batches of 8·n and kept where they
+    fall in the tissue, batch after batch until ``n`` are found. A tissue of
+    an eighth of the volume or more as a rule takes one batch."""
+    if not bool(tissue.any()):
+        raise RuntimeError(f"no tissue to place {n} nucleus centres in")
+    extent = torch.tensor(tissue.shape, device=tissue.device, dtype=torch.float64)
+    found, count = [], 0
+    while count < n:
+        cand = torch.rand((8 * n, 3), generator=g, device=tissue.device, dtype=torch.float64)
+        cand = cand * extent
+        idx = cand.floor().long()
+        found.append(cand[tissue[idx[:, 0], idx[:, 1], idx[:, 2]]])
+        count += found[-1].shape[0]
+    return torch.cat(found)[:n]
+
+
 def _add_nuclei(vol, tissue, n: int, nuc: dict, seed: int, device) -> None:
     """Add ``n`` Gaussian blobs whose centres lie in the tissue into
     ``vol`` in place, in one scatter-add."""
     shape = vol.shape
     g = generator(seed, device)
-    cand = torch.rand((8 * n, 3), generator=g, device=device, dtype=torch.float64)
-    cand = cand * torch.tensor(shape, device=device, dtype=torch.float64)
-    idx = cand.floor().long()
-    inside = tissue[idx[:, 0], idx[:, 1], idx[:, 2]]
-    centres = cand[inside][:n]
-    if centres.shape[0] < n:
-        raise RuntimeError(f"only {centres.shape[0]} of {n} nucleus centres in the tissue")
+    centres = nucleus_centres(tissue, n, g)
     u = torch.rand((n, 3), generator=g, device=device, dtype=torch.float64)
     amp = nuc["amplitude"][0] + u[:, 0] * (nuc["amplitude"][1] - nuc["amplitude"][0])
     s_yx = nuc["sigma_yx"][0] + u[:, 1] * (nuc["sigma_yx"][1] - nuc["sigma_yx"][0])

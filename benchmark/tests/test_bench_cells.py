@@ -15,7 +15,7 @@ import pytest
 import scipy.ndimage
 import torch
 
-from tiny import BENCH_DIR, REPO_ROOT, TINY_FEATURES, TINY_WINDOW, tiny_root
+from tiny import BENCH_DIR, REPO_ROOT, tiny_root
 
 from benchlib import arith, cells, harness, phantom
 from benchlib.trace import merge, program_kernel_names
@@ -97,14 +97,23 @@ def _active_from_geometry(traffic, roi, overlap):
     return int((total <= 1.0).sum()), int(total.size)
 
 
-@pytest.mark.parametrize("workload,active", [
-    ("delivr_unet.stream_brain", (1365, 1485)),
-    ("delivr_unet_tta.stream_section", (198, 198)),
+@pytest.mark.parametrize("workload,active,warm", [
+    ("delivr_unet.stream_brain", (1365, 1485), (396, 396)),
+    ("delivr_unet_tta.stream_section", (198, 198), (198, 198)),
 ])
-def test_active_windows(workload, active):
+def test_active_windows(workload, active, warm):
+    """The windows with tissue in the cell's volume and in its warm-up
+    brain, the middle ``warm_rows`` window rows (harness.make_inputs): the
+    warm-up holds more active windows than a batch of 128."""
     cell = cells.find_cell(workload)
-    got = _active_from_geometry(cell.traffic, cell.config["window_zyx"], cell.config["overlap"])
-    assert got == active
+    roi, overlap, tr = cell.config["window_zyx"], cell.config["overlap"], cell.traffic
+    assert _active_from_geometry(tr, roi, overlap) == active
+    planes = min(tr["volume_zyx"][0], (tr["warm_rows"] - 1) * int(roi[0] * overlap) + roi[0])
+    z0 = (tr["volume_zyx"][0] - planes) // 2
+    warm_tr = dict(tr, volume_zyx=[planes, *tr["volume_zyx"][1:]],
+                   offset_zyx=[tr["offset_zyx"][0] + z0, *tr["offset_zyx"][1:]])
+    assert _active_from_geometry(warm_tr, roi, overlap) == warm
+    assert warm[0] > 128
 
 
 def test_active_windows_counted_from_the_phantom(tmp_path):
@@ -114,29 +123,46 @@ def test_active_windows_counted_from_the_phantom(tmp_path):
     assert phantom.active_windows(vol, roi, 0.5) == _active_from_geometry(cell.traffic, roi, 0.5)
 
 
-def test_forward_flops_and_conv_bound():
-    f, roi = (32, 32, 64, 128, 256, 32), (96, 96, 64)
-    flops = arith.forward_flops(f, roi)
+@pytest.mark.parametrize("workload", ["delivr_unet.stream_brain", "delivr_unet_tta.stream_section"])
+def test_forward_flops_and_conv_bound(workload):
+    cfg = cells.find_cell(workload).config
+    model = cells.model_module(cfg)
+    flops = model.forward_flops(cfg)
     assert flops["conv3x3x3"] / 1e9 == pytest.approx(166.387, abs=1e-3)
     assert flops["deconv"] / 1e9 == pytest.approx(1.736, abs=1e-3)
     assert flops["final"] / 1e9 == pytest.approx(0.0377, abs=1e-4)
     assert flops["total"] / 1e9 == pytest.approx(168.16, abs=0.01)
     # at 128 windows: the 17 convs past the first, PERF.md's 21.40 ms
     # conv3d_cs bound, and with the C_in = 1 first conv (bytes-bound) too
-    packed = sum(arith.conv_bound_s(128, d, h * w, c1 + c2, co)
-                 for _, _, c1, c2, co, d, h, w in arith.conv_shapes(f, roi)[1:])
+    shapes = model.conv3d_cs_shapes(cfg)
+    packed = sum(arith.conv_bound_s(128, d, h * w, ci, co) for _, ci, co, d, h, w in shapes[1:])
     assert 21.3e-3 <= packed <= 21.5e-3
-    assert arith.convs_bound_s(f, roi, 128) == pytest.approx(22.89e-3, abs=0.01e-3)
+    assert arith.convs_bound_s(shapes, 128) == pytest.approx(22.89e-3, abs=0.01e-3)
 
 
-def test_weights_match_the_state_dict():
-    from delivr_cfos_tpu_torch.models.basic_unet import BasicUNet, BasicUNetConfig
+def _program_model(sd, precision="parity"):
+    """The model that the program's stage 2 builds from the state dict
+    (it infers the architecture from the keys and loads them strictly)."""
+    import types
 
-    cfg = {"features": TINY_FEATURES, "in_channels": 1, "out_channels": 1}
+    from delivr_cfos_tpu_torch.pipeline.stage02_inference import (
+        build_model, resolve_model_config)
+
+    mc, _ = resolve_model_config(types.SimpleNamespace(precision=precision), sd, "cpu")
+    return build_model(sd, mc, "cpu"), mc
+
+
+@pytest.mark.parametrize("config", [c["name"] for c in SPEC["configs"]])
+def test_weights_match_the_state_dict(config):
+    """The weights that the configuration's model module makes, cut to its
+    TINY sizes, are the state dict of the model that the program builds."""
+    path = os.path.join(REPO_ROOT, next(c["file"] for c in SPEC["configs"] if c["name"] == config))
+    cfg = cells.load_json(path)
+    cfg.update(cells.model_module(cfg).TINY)
     sd = make_weights(cfg, 2**40 + 3, "cpu")
-    want = BasicUNet(BasicUNetConfig(features=tuple(TINY_FEATURES))).state_dict()
+    model, _ = _program_model(sd)
     assert {k: tuple(v.shape) for k, v in sd.items()} == {
-        k: tuple(v.shape) for k, v in want.items()}
+        k: tuple(v.shape) for k, v in model.state_dict().items()}
     again = make_weights(cfg, 2**40 + 3, "cpu")
     assert all(torch.equal(sd[k], again[k]) for k in sd)
 
@@ -159,7 +185,6 @@ def test_reference_agrees_with_the_programs_parity_forward(workload, tmp_path):
     program's float32 streamed stage 2 (its TTA noise drawn alike)."""
     from delivr_cfos_tpu_torch.engine.sliding_window import SlidingWindowConfig
     from delivr_cfos_tpu_torch.engine.streaming import infer_volume_streaming
-    from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig, build_model
 
     root = tiny_root(tmp_path, workload)
     cell = cells.find_cell(workload, root)
@@ -167,11 +192,11 @@ def test_reference_agrees_with_the_programs_parity_forward(workload, tmp_path):
     vol = phantom.make_phantom(cell.traffic, 21, "cpu")
     sd = make_weights(cfg, 22, "cpu")
     ref = cells.reference_module(cfg, root).reference(vol, sd, cfg)
-    mc = BasicUNetConfig(features=tuple(TINY_FEATURES), precision="parity")
+    model, mc = _program_model(sd)
     logits = np.zeros(vol.shape, np.float32)
     infer_volume_streaming(
-        build_model(sd, mc, "cpu"), vol.numpy().astype(np.uint16),
-        SlidingWindowConfig(roi=tuple(TINY_WINDOW), tta=cfg["tta"],
+        model, vol.numpy().astype(np.uint16),
+        SlidingWindowConfig(roi=tuple(cfg["window_zyx"]), tta=cfg["tta"],
                             erosion_iters=cfg["erosion_iters"]),
         mc, logits_out=logits)
     # float32 summation orders differ by about 1e-6; the reference draws TTA

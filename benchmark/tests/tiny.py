@@ -1,6 +1,7 @@
 """A tiny copy of a cell for CPU tests: the benchmark's files under a
 temporary root, the cell's configuration and traffic cut to sizes that a
-test run holds (TINY widths, a (128, 64, 48) volume in two slabs)."""
+test run holds (the widths and window of its model module's ``TINY``, a
+(128, 64, 48) volume in two slabs)."""
 
 from __future__ import annotations
 
@@ -15,8 +16,8 @@ for p in (BENCH_DIR, REPO_ROOT):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-TINY_FEATURES = [4, 4, 8, 16, 32, 4]
-TINY_WINDOW = [32, 32, 16]
+from benchlib import cells  # noqa: E402
+
 TINY_VOLUME = [128, 64, 48]
 
 
@@ -35,8 +36,7 @@ def tiny_root(tmp, workload: str) -> str:
                                         if c["name"] == w["config"]))
     with open(cfg_file) as f:
         cfg = json.load(f)
-    cfg.update(features=TINY_FEATURES, window_zyx=TINY_WINDOW, erosion_iters=3,
-               plane_yx=TINY_VOLUME[1:])
+    cfg.update(cells.model_module(cfg, root).TINY, erosion_iters=3, plane_yx=TINY_VOLUME[1:])
     with open(cfg_file, "w") as f:
         json.dump(cfg, f)
     tr_file = os.path.join(root, "benchmark", "traffic", f"{w['traffic']}.json")
