@@ -2,6 +2,7 @@
 """Drive the PyTorch port (delivr_cfos_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --swin    # phases 1, 2 and 6a alone
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -118,6 +119,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
              "profile") and shows that no convolution or transposed
              convolution of the library ran, and no
              conv3d_cs_packed_wide_kernel or conv3d_cs_narrow_kernel.
+6a. swin   — SwinUNETR at full width (feature size 48, PyTorch's default
+             init from the seed, relative-position tables uniform in ±2)
+             through run_inference, fast, on phase 6's volume: counts set
+             to 0 just before a second run, 8 window_attention_cs and 20
+             affine_act_cs launches per forward batch. Then one forward of
+             SWIN_CHECK_WINDOWS windows in which every attention call and
+             every epilogue runs on its own inputs against its plain version
+             (one bf16 ULP; at max(|value|, rms) for the attention, at the
+             value's own magnitude for the epilogue), each timed (device
+             ms), with its bound, the plain version's ms and a yardstick the
+             port never calls: F.scaled_dot_product_attention with the bias
+             and shift mask as a float mask, F.leaky_relu without the
+             affine; a sum line each ("swin_attention_sum",
+             "swin_epilogue_sum").
 7. fused   — stage 2 in parity with BasicUNetConfig(fused_in_mish=True) on
              the same volume: 18 instance_norm_mish launches per forward
              batch, no conv3d_cs, binaries equal to phase 6's parity run
@@ -269,7 +284,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 14. the {"kernels": [...]} line (conv3d_cs: the packed conv kernel,
              conv3d_cs_direct, conv3d_cs_narrow with phase 4b's launches,
              conv3d_cs_pack, instance_norm_mish, affine_mish_cs with stage
-             2's launches and phase 8a's sums, deconv2x_cs; conv3d_cs and
+             2's launches and phase 8a's sums, deconv2x_cs,
+             window_attention_cs and affine_act_cs with phase 6a's launches
+             and sums; conv3d_cs and
              conv3d_cs_pack carry a "padded" field: phase 4c's launches on
              pad slots and the sums over its 6 shapes with pad slots;
              conv3d_cs a "wide" field: phase 4d's launches on the wide
@@ -283,6 +300,7 @@ power limit (the "card" key).
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import math
@@ -304,6 +322,7 @@ VOLUME = (192, 480, 384)
 STREAM_VOLUME = (768, 480, 384)  # 15 window z-starts: 4 slabs of 4 rows
 FALLBACK_WINDOW = (100, 100, 60)  # not divisible by 16
 SEED = 0
+SWIN_CHECK_WINDOWS = 8  # windows of phase 6a's checked forward
 SPIN_CYCLES = 50_000_000  # about 25 ms at the card's clock: device_ms's head start
 BAND = 1e-3  # |logit| inside which sums in another order may flip a voxel
 PACKED = 17  # convs of a forward on the packed path: all but the C_in = 1 first
@@ -769,7 +788,7 @@ def profile_summary(prof, wall_s, top=12):
     conv_ms = sum(r[0] for r in rows if "conv3d_cs" in r[2]) - pack_ms
     direct = [r for r in rows if "conv3d_cs_direct_kernel" in r[2]]
     deconv_ms = sum(r[0] for r in rows if "deconv2x_cs" in r[2])
-    affine_mish_ms = sum(r[0] for r in rows if "affine_mish_cs_kernel" in r[2])
+    affine_mish_ms = sum(r[0] for r in rows if "affine_act_cs_kernel" in r[2])
     return dict(phase="profile", wall_s=wall_s, device_busy_ms=busy_ms,
                 device_idle_share=1.0 - busy_ms / 1e3 / wall_s,
                 conv3d_cs_ms=conv_ms, conv3d_cs_pack_ms=pack_ms,
@@ -979,6 +998,200 @@ def affine_mish_rows(card, features, roi, batch):
               max_ulps=max(r["max_ulps"] for r in rows),
               fraction_of_bound=total["bound_ms"] / total["ms"], **total))
     return rows
+
+
+def swin_weights(seed=SEED):
+    """A full-width SwinUNETR's state dict (feature size 48): PyTorch's
+    default init, seeded, with the relative-position tables uniform in ±2
+    (they start at zero) so that the bias steers the attention."""
+    from delivr_cfos_tpu_torch.models.swin_unetr import SwinUNETR, SwinUNETRConfig
+
+    torch.manual_seed(seed)
+    sd = SwinUNETR(SwinUNETRConfig()).state_dict()
+    g = torch.Generator().manual_seed(seed)
+    for k, v in sd.items():
+        if k.endswith("relative_position_bias_table"):
+            v.copy_(torch.rand(v.shape, generator=g) * 4 - 2)
+    return sd
+
+
+def check_window_attention(card, call, qkv, bias, geo_kw):
+    """One attention call of the fast forward, on its own inputs: the kernel
+    against its plain version sample by sample (one bf16 ULP at max(|value|,
+    rms)); device ms of the kernel, the plain version and one
+    F.scaled_dot_product_attention with the bias and the shift mask as a
+    float mask (a yardstick only); the bound: QKᵀ and PV at the bf16 peak
+    against q, k, v and the output in bf16 and the bias table once."""
+    from delivr_cfos_tpu_torch.ops.window_attention_cs import (
+        MASK_VALUE, regions, window_attention_cs, window_attention_cs_reference,
+    )
+
+    heads, ws, padded, shift = (geo_kw[k] for k in ("heads", "ws", "padded", "shift"))
+    bw, n, c3 = qkv.shape
+    nw = math.prod(p // w for p, w in zip(padded, ws))
+    got = window_attention_cs(qkv, bias, **geo_kw)
+    ulps = err = 0.0
+    for lo in range(0, bw, nw):
+        want = window_attention_cs_reference(qkv[lo:lo + nw], bias, **geo_kw)
+        u, e = ulp_error(got[lo:lo + nw], want)
+        ulps, err = max(ulps, u), max(err, e)
+    ms = device_ms(lambda: window_attention_cs(qkv, bias, **geo_kw), reps=5)
+    plain_ms = timed_ms(lambda: [window_attention_cs_reference(qkv[lo:lo + nw], bias, **geo_kw)
+                                 for lo in range(0, bw, nw)], reps=1)
+    q, k, v = qkv.view(bw // nw, nw, n, 3, heads, 16).permute(3, 0, 1, 4, 2, 5)
+    mask = bias.transpose(1, 2)[None, None].float()  # (1, 1, heads, n, n) query-major
+    if any(shift):
+        r = regions(ws, padded, shift, qkv.device)
+        mask = mask + torch.where(r[:, :, None] != r[:, None, :], MASK_VALUE, 0.0)[None, :, None]
+    mask = mask.to(qkv.dtype)
+    library_ms = device_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask),
+        reps=5)
+    flops = 4.0 * bw * heads * n * n * 16
+    nbytes = 2.0 * bw * n * (c3 + c3 // 3) + 4.0 * heads * n * n
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    row = dict(phase="swin_attention", card=card, call=call, windows=bw, heads=heads,
+               tokens=n, shifted=any(shift), max_ulps=ulps, max_abs_err=err, ms=ms,
+               bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               plain_ms=plain_ms, library_ms=library_ms)
+    emit(row)
+    if ulps > 1.0 or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"window_attention_cs disagrees with its plain version: {row}")
+    return got, row
+
+
+def check_affine_act(card, call, x, a, c, act, residual):
+    """One epilogue of the fast forward, on its own inputs: the kernel
+    against its plain version (one bf16 ULP at the plain value's own
+    magnitude); device ms of the kernel, the plain version and
+    F.leaky_relu on the bf16 tensor without the affine (a yardstick only);
+    the bound: x, the residual and the output once, 2 bytes an element
+    each, at the HBM peak."""
+    from delivr_cfos_tpu_torch.ops.affine_mish_cs import affine_act_cs, affine_act_cs_reference
+
+    got = affine_act_cs(x, a, c, act=act, residual=residual)
+    want = affine_act_cs_reference(x, a, c, act, residual)
+    ulps, err = ulp_error_own(got, want)
+    del want
+    ms = device_ms(lambda: affine_act_cs(x, a, c, act=act, residual=residual))
+    plain_ms = timed_ms(lambda: affine_act_cs_reference(x, a, c, act, residual), reps=1)
+    library_ms = device_ms(lambda: torch.nn.functional.leaky_relu(x, 0.01))
+    nbytes = (6.0 if residual is not None else 4.0) * x.numel()
+    row = dict(phase="swin_epilogue", card=card, call=call, shape=list(x.shape), act=act,
+               residual=residual is not None, max_ulps=ulps, max_abs_err=err, ms=ms,
+               bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes", plain_ms=plain_ms,
+               library_ms=library_ms)
+    emit(row)
+    if ulps > 1.0 or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"affine_act_cs disagrees with its plain version: {row}")
+    return got, row
+
+
+def swin_phase(card, vol, dev):
+    """Phase 6a: SwinUNETR's fast stage 2 on its own kernels."""
+    from delivr_cfos_tpu_torch.engine.sliding_window import auto_batch_size
+    from delivr_cfos_tpu_torch.models import swin_unetr_cs
+    from delivr_cfos_tpu_torch.models.registry import infer_model_config
+    from delivr_cfos_tpu_torch.ops.affine_mish_cs import affine_act_cs
+    from delivr_cfos_tpu_torch.ops.window_attention_cs import window_attention_cs
+
+    sd = swin_weights()
+    cfg = dataclasses.replace(infer_model_config(sd), precision="fast")
+    batch = auto_batch_size(ROI, cfg, vol.nbytes, device=dev)
+    n_active, n_batches = forward_batches(vol, batch, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_brain(tmp, vol)
+        stage2(tmp, "warm", sd)
+        window_attention_cs.launches = affine_act_cs.launches = 0
+        seconds, peak, bins, _ = stage2(tmp, "fast", sd)
+        attn_launches, act_launches = window_attention_cs.launches, affine_act_cs.launches
+    emit(dict(phase="swin_stage2", card=card, volume=list(vol.shape), roi=list(ROI),
+              active_windows=n_active, batch=batch, forward_batches=n_batches,
+              window_attention_cs_launches=attn_launches,
+              affine_act_cs_launches=act_launches, seconds=seconds,
+              gvox_per_s=vol.size / seconds / 1e9, peak_gib=peak,
+              positives=int(bins.sum())))
+    if attn_launches != 8 * n_batches or act_launches != 20 * n_batches:
+        raise AssertionError(f"{attn_launches} window_attention_cs and {act_launches} "
+                             f"affine_act_cs launches for {n_batches} forward batches "
+                             "(8 and 20 a batch)")
+
+    # every call of one forward batch, checked and timed on its own inputs
+    model = cfg.build(sd, dev)
+    z, y, x = ROI
+    starts = [(0, 0, 0), (48, 0, 0), (0, 48, 32), (96, 120, 64)] * (SWIN_CHECK_WINDOWS // 4)
+    xw = torch.from_numpy(np.stack([vol[a:a + z, b:b + y, c:c + x] for a, b, c in starts])
+                          .astype(np.float32))[..., None].to(dev)
+    attn_rows, act_rows = [], []
+    real_attn, real_act = swin_unetr_cs.window_attention_cs, swin_unetr_cs.affine_act_cs
+
+    def attention(qkv, bias, **kw):
+        out, row = check_window_attention(card, len(attn_rows), qkv, bias, kw)
+        attn_rows.append(row)
+        return out
+
+    def epilogue(x, a, c, act, residual=None):
+        out, row = check_affine_act(card, len(act_rows), x, a, c, act, residual)
+        act_rows.append(row)
+        return out
+
+    swin_unetr_cs.window_attention_cs, swin_unetr_cs.affine_act_cs = attention, epilogue
+    try:
+        cfg.apply(model, xw)
+    finally:
+        swin_unetr_cs.window_attention_cs, swin_unetr_cs.affine_act_cs = real_attn, real_act
+    torch.cuda.empty_cache()
+    if (len(attn_rows), len(act_rows)) != (8, 20):
+        raise AssertionError(f"{len(attn_rows)} attention and {len(act_rows)} epilogue "
+                             "calls in one forward (8 and 20)")
+    sums = {}
+    for name, rows in (("attention", attn_rows), ("epilogue", act_rows)):
+        total = {k: sum(r[k] for r in rows) for k in ("ms", "bound_ms", "plain_ms",
+                                                        "library_ms")}
+        sums[name] = dict(total, max_ulps=max(r["max_ulps"] for r in rows),
+                          max_abs_err=max(r["max_abs_err"] for r in rows))
+        emit(dict(phase=f"swin_{name}_sum", card=card, calls=len(rows),
+                  windows=SWIN_CHECK_WINDOWS, **sums[name]))
+    del model, xw
+    torch.cuda.empty_cache()
+    return {"window_attention_cs": dict(sums["attention"], launches=attn_launches),
+            "affine_act_cs": dict(sums["epilogue"], launches=act_launches)}
+
+
+def swin_kernel_entries(swin):
+    """The kernels table's rows of phase 6a, one forward batch of
+    SWIN_CHECK_WINDOWS windows each."""
+    a, e = swin["window_attention_cs"], swin["affine_act_cs"]
+    return [{
+        "name": "window_attention_cs",
+        "route": "cuda",
+        "source": "delivr_cfos_tpu_torch/csrc/window_attention_cs.cu",
+        # SwinUNETR's attention, which the JAX package does not have
+        "replaces": None,
+        "launches": a["launches"],
+        "max_abs_err": a["max_abs_err"],
+        "max_ulps": a["max_ulps"],
+        "ms": a["ms"],
+        "plain_ms": a["plain_ms"],
+        "bound_ms": a["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": a["library_ms"],
+    }, {
+        "name": "affine_act_cs",
+        "route": "cuda",
+        "source": "delivr_cfos_tpu_torch/csrc/affine_mish_cs.cu",
+        # its LeakyReLU and residual instances, SwinUNETR's 20 epilogues
+        "replaces": None,
+        "launches": e["launches"],
+        "max_abs_err": e["max_abs_err"],
+        "max_ulps": e["max_ulps"],
+        "ms": e["ms"],
+        "plain_ms": e["plain_ms"],
+        "bound_ms": e["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": e["library_ms"],
+    }]
 
 
 def stream_phase(card, sd, dev):
@@ -3103,6 +3316,10 @@ def main() -> int:
               nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda))
 
     emit(dict(phase="build", seconds=_build.build_all()))
+    if "--swin" in sys.argv[1:]:
+        emit({"kernels": swin_kernel_entries(swin_phase(smi, make_volume(), torch.device("cuda")))})
+        print(smi, flush=True)
+        return 0
 
     # --- 3. kernel vs plain at the main path's shapes ----------------------
     dev = torch.device("cuda")
@@ -3304,6 +3521,9 @@ def main() -> int:
 
     # --- 8a. affine_mish_cs vs plain at the fast forward's epilogues --------
     am_rows = affine_mish_rows(smi, fast_cfg.features, ROI, batch)
+
+    # --- 6a. SwinUNETR's fast stage 2 on its own kernels --------------------
+    swin = swin_phase(smi, vol, dev)
 
     # --- 9. fast fallback: bf16 forward with the fused epilogue -------------
     fz, fy, fx = FALLBACK_WINDOW
@@ -3517,7 +3737,7 @@ def main() -> int:
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in deconv_rows)
         else "operations",
         "library_ms": sum(r["library_ms"] for r in deconv_rows),
-    }]})
+    }, *swin_kernel_entries(swin)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,6 @@
-// The fast forward's epilogue, bf16(mish(x * a + c)), in one pass, for sm_90a.
+// The fast forwards' epilogue, bf16(act(x * a + c [+ r * a_r + c_r])), in one
+// pass, for sm_90a: BasicUNet's mish instance, and SwinUNETR's LeakyReLU(0.01)
+// instances with and without the residual operand r.
 //
 // Replaces the XLA fusion of delivr_cfos_tpu/models/basic_unet_cs.py:108
 // (`_affine_mish_cs`), which the TPU runs as one elementwise pass after each
@@ -7,6 +9,13 @@
 //   a, c    (B, C) f32: the InstanceNorm folded into one affine per (b, c)
 //   v       = x * a + c, in f32, rounded after the multiply and after the add
 //   out     = v * tanh(softplus(v)), rounded once to bf16
+// The other instances (SwinUNETR's residual blocks, lrelu(IN(conv2) + r)):
+//   r, a_r, c_r  optional: r (B, D, C, S) bf16 at x's alignment, a_r and
+//                c_r (B, C) f32; v = (x * a + c) + (r * a_r + c_r), each
+//                product and sum rounded in f32 in that order
+//   out          = v > 0 ? v : v * 0.01, rounded once to bf16, or mish(v)
+// The mish instance without r is the kernel BasicUNet has run since it was
+// written: the same arithmetic, launch and grid.
 //
 // Bound on an H100 SXM: bytes. One read of x and one write of out, 4 bytes an
 // element, at 3.35 TB/s is 0.84 G elements a millisecond; the card runs
@@ -92,9 +101,54 @@ __device__ __forceinline__ float mish(float v) {
   return m;
 }
 
-__device__ __forceinline__ float affine_mish(float x, float a, float c) {
-  return mish(__fadd_rn(__fmul_rn(x, a), c));
+enum { MISH = 0, LRELU = 1 };
+constexpr float LRELU_SLOPE = 0.01f;
+
+template <int ACT>
+__device__ __forceinline__ float act(float v) {
+  if (ACT == MISH) return mish(v);
+  return v > 0.0f ? v : __fmul_rn(v, LRELU_SLOPE);
 }
+
+__device__ __forceinline__ float affine(float x, float a, float c) {
+  return __fadd_rn(__fmul_rn(x, a), c);
+}
+
+// the factors of one row: (a, c) and, with the residual, (a_r, c_r)
+struct Factors {
+  float a, c, ar, cr;
+};
+
+template <bool RESID>
+__device__ __forceinline__ Factors factors(const float* __restrict__ a,
+                                           const float* __restrict__ c,
+                                           const float* __restrict__ ar,
+                                           const float* __restrict__ cr, unsigned p) {
+  Factors f{__ldg(a + p), __ldg(c + p), 0.0f, 0.0f};
+  if (RESID) {
+    f.ar = __ldg(ar + p);
+    f.cr = __ldg(cr + p);
+  }
+  return f;
+}
+
+template <int ACT, bool RESID>
+__device__ __forceinline__ float apply(float x, float r, const Factors& f) {
+  float v = affine(x, f.a, f.c);
+  if (RESID) v = __fadd_rn(v, affine(r, f.ar, f.cr));
+  return act<ACT>(v);
+}
+
+// the operands of a kernel launch
+struct Operands {
+  const __nv_bfloat16* __restrict__ x;
+  const __nv_bfloat16* __restrict__ r;
+  const float* __restrict__ a;
+  const float* __restrict__ c;
+  const float* __restrict__ ar;
+  const float* __restrict__ cr;
+  __nv_bfloat16* __restrict__ out;
+};
 
 __device__ __forceinline__ void unpack(const uint4& u, float* f) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
@@ -117,51 +171,44 @@ __device__ __forceinline__ uint4 pack(const float* f) {
 }
 
 // one element at flat index i, its row found alone (the scalar head and tail)
-__device__ __forceinline__ void apply_one(const __nv_bfloat16* __restrict__ x,
-                                          const float* __restrict__ a,
-                                          const float* __restrict__ c,
-                                          __nv_bfloat16* __restrict__ out,
-                                          long long i, const Shape& sh) {
+template <int ACT, bool RESID>
+__device__ __forceinline__ void apply_one(const Operands& op, long long i,
+                                          const Shape& sh) {
   const unsigned p = factor_index(
       static_cast<unsigned>(divide(static_cast<unsigned long long>(i), sh.by_s)), sh);
-  out[i] = __float2bfloat16_rn(
-      affine_mish(__bfloat162float(x[i]), __ldg(a + p), __ldg(c + p)));
+  const Factors f = factors<RESID>(op.a, op.c, op.ar, op.cr, p);
+  const float r = RESID ? __bfloat162float(op.r[i]) : 0.0f;
+  op.out[i] = __float2bfloat16_rn(apply<ACT, RESID>(__bfloat162float(op.x[i]), r, f));
 }
 
-// the 8 elements of a vector whose first element has flat index i
-__device__ __forceinline__ void apply_vector(float* f, long long i,
-                                             const float* __restrict__ a,
-                                             const float* __restrict__ c,
-                                             const Shape& sh) {
+// the 8 elements of a vector whose first element has flat index i; rv: the
+// residual's 8 elements (unread without it)
+template <int ACT, bool RESID>
+__device__ __forceinline__ void apply_vector(float* fx, const float* rv, long long i,
+                                             const Operands& op, const Shape& sh) {
   unsigned row = static_cast<unsigned>(
       divide(static_cast<unsigned long long>(i), sh.by_s));
   long long off = i - static_cast<long long>(row) * sh.s;  // within the row
-  unsigned p = factor_index(row, sh);
-  float fa = __ldg(a + p), fc = __ldg(c + p);
+  Factors f = factors<RESID>(op.a, op.c, op.ar, op.cr, factor_index(row, sh));
   if (off + V <= sh.s) {  // one row: the common case wherever S >= 8
 #pragma unroll
-    for (int k = 0; k < V; ++k) f[k] = affine_mish(f[k], fa, fc);
+    for (int k = 0; k < V; ++k) fx[k] = apply<ACT, RESID>(fx[k], RESID ? rv[k] : 0.0f, f);
   } else {  // the vector crosses the end of its row, or of several
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       if (off == sh.s) {
         off = 0;
-        p = factor_index(++row, sh);
-        fa = __ldg(a + p);
-        fc = __ldg(c + p);
+        f = factors<RESID>(op.a, op.c, op.ar, op.cr, factor_index(++row, sh));
       }
-      f[k] = affine_mish(f[k], fa, fc);
+      fx[k] = apply<ACT, RESID>(fx[k], RESID ? rv[k] : 0.0f, f);
       ++off;
     }
   }
 }
 
+template <int ACT, bool RESID>
 __global__ void __launch_bounds__(THREADS)
-    affine_mish_cs_kernel(const __nv_bfloat16* __restrict__ x,
-                          const float* __restrict__ a,
-                          const float* __restrict__ c,
-                          __nv_bfloat16* __restrict__ out, long long n,
-                          long long head, Shape sh) {
+    affine_act_cs_kernel(Operands op, long long n, long long head, Shape sh) {
   const long long n_vec = (n - head) / V;
   const long long tail = head + n_vec * V;
   const long long tid =
@@ -169,25 +216,32 @@ __global__ void __launch_bounds__(THREADS)
   const long long stride = static_cast<long long>(gridDim.x) * THREADS;
 
   // scalar head up to the first 16-byte boundary, and the tail: < V each
-  if (tid < head) apply_one(x, a, c, out, tid, sh);
-  if (tid < n - tail) apply_one(x, a, c, out, tail + tid, sh);
+  if (tid < head) apply_one<ACT, RESID>(op, tid, sh);
+  if (tid < n - tail) apply_one<ACT, RESID>(op, tail + tid, sh);
 
-  const uint4* xv = reinterpret_cast<const uint4*>(x + head);
-  uint4* ov = reinterpret_cast<uint4*>(out + head);
+  const uint4* xv = reinterpret_cast<const uint4*>(op.x + head);
+  const uint4* rvp = reinterpret_cast<const uint4*>(op.r + head);
+  uint4* ov = reinterpret_cast<uint4*>(op.out + head);
   for (long long j0 = tid; j0 < n_vec; j0 += stride * UNROLL) {
     uint4 u[UNROLL];
+    uint4 ur[UNROLL];
 #pragma unroll
     for (int r = 0; r < UNROLL; ++r) {
       const long long j = j0 + r * stride;
-      if (j < n_vec) u[r] = __ldcs(xv + j);  // read once: evict first
+      if (j < n_vec) {
+        u[r] = __ldcs(xv + j);  // read once: evict first
+        if (RESID) ur[r] = __ldcs(rvp + j);
+      }
     }
 #pragma unroll
     for (int r = 0; r < UNROLL; ++r) {
       const long long j = j0 + r * stride;
       if (j < n_vec) {
         float f[V];
+        float fr[V];
         unpack(u[r], f);
-        apply_vector(f, head + j * V, a, c, sh);
+        if (RESID) unpack(ur[r], fr);
+        apply_vector<ACT, RESID>(f, fr, head + j * V, op, sh);
         ov[j] = pack(f);
       }
     }
@@ -208,15 +262,9 @@ Div32 make_div32(unsigned d) {
   return {static_cast<unsigned>((num + d - 1) / d), l};
 }
 
-}  // namespace
-
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// n = B * D * C * S elements; head: elements before x's first 16-byte
-// boundary (out shares x's alignment). Needs S < 2^31 and B * D * C < 2^31.
-extern "C" int affine_mish_cs_launch(const void* x, const void* a,
-                                     const void* c, void* out, long long n,
-                                     int D, int C, long long S, long long head,
-                                     void* stream) {
+template <int ACT, bool RESID>
+int launch(const Operands& op, long long n, int D, int C, long long S, long long head,
+           void* stream) {
   if (n <= 0 || D <= 0 || C <= 0 || S <= 0 || S >= (1LL << 31) || head < 0 ||
       head >= V || n >= (1LL << 62))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -237,17 +285,38 @@ extern "C" int affine_mish_cs_launch(const void* x, const void* a,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, affine_mish_cs_kernel, THREADS, 0);
+        &per_sm, affine_act_cs_kernel<ACT, RESID>, THREADS, 0);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long n_vec = (n - head) / V;
   long long blocks = (n_vec + THREADS * UNROLL - 1) / (THREADS * UNROLL);
   const long long resident = static_cast<long long>(sms) * per_sm;
   if (blocks > resident) blocks = resident;
   if (blocks < 1) blocks = 1;
-  affine_mish_cs_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(a),
-      static_cast<const float*>(c), static_cast<__nv_bfloat16*>(out), n, head,
-      sh);
+  affine_act_cs_kernel<ACT, RESID><<<static_cast<unsigned>(blocks), THREADS, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(op, n, head, sh);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Launches on `stream` and returns cudaGetLastError() (0 = launched).
+// n = B * D * C * S elements; head: elements before x's first 16-byte
+// boundary (out shares x's alignment). Needs S < 2^31 and B * D * C < 2^31.
+// act_kind 0 (mish) or 1 (LeakyReLU 0.01); the residual r with its factors
+// a_r, c_r where r is not null (r shares x's alignment).
+extern "C" int affine_act_cs_launch(const void* x, const void* a, const void* c,
+                                    const void* r, const void* ar, const void* cr,
+                                    void* out, long long n, int D, int C, long long S,
+                                    long long head, int act_kind, void* stream) {
+  const Operands op{static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(r),
+                    static_cast<const float*>(a), static_cast<const float*>(c),
+                    static_cast<const float*>(ar), static_cast<const float*>(cr),
+                    static_cast<__nv_bfloat16*>(out)};
+  if (act_kind == MISH)
+    return r ? launch<MISH, true>(op, n, D, C, S, head, stream)
+             : launch<MISH, false>(op, n, D, C, S, head, stream);
+  if (act_kind == LRELU)
+    return r ? launch<LRELU, true>(op, n, D, C, S, head, stream)
+             : launch<LRELU, false>(op, n, D, C, S, head, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -29,11 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from delivr_cfos_tpu_torch.models.basic_unet import (
-    BasicUNet,
-    BasicUNetConfig,
-    basic_unet_apply,
-)
+from delivr_cfos_tpu_torch.models.basic_unet import BasicUNet, BasicUNetConfig
 from delivr_cfos_tpu_torch.ops.morphology import binarize_logits
 from delivr_cfos_tpu_torch.utils.profiling import annotate, count
 
@@ -66,23 +62,23 @@ def _device_bytes(device) -> tuple[int, bool]:
     return _HOST_DEFAULT_BYTES, False
 
 
-def windows_that_fit(roi, model_cfg: BasicUNetConfig, volume_bytes: int = 0,
+def windows_that_fit(roi, model_cfg, volume_bytes: int = 0,
                      reserve_fraction: float = 0.5, device=None) -> int:
     """How many windows' activations fit beside a resident volume of
     ``volume_bytes`` in the share of device memory that ``auto_batch_size``
-    budgets (below 1: not even one)."""
+    budgets (below 1: not even one); a window's bytes are the model
+    config's estimate (its ``window_bytes``)."""
     total, _ = _device_bytes(device)
-    dtype_bytes = 2 if model_cfg.precision == "fast" else 4
-    per_window = 8 * int(np.prod(roi)) * model_cfg.features[0] * dtype_bytes
+    per_window = model_cfg.window_bytes(roi)
     resident = 5 * volume_bytes + min(total // 8, 2 * 2**30)
     return (int(total * (1 - reserve_fraction)) - resident) // per_window
 
 
-def auto_batch_size(roi, model_cfg: BasicUNetConfig, volume_bytes: int = 0,
+def auto_batch_size(roi, model_cfg, volume_bytes: int = 0,
                     reserve_fraction: float = 0.5, device=None) -> int:
     """Window batch from device memory (the reference sizes it from free
-    VRAM, inference.py:171-187). Per window about 8 live (roi·f0)-sized
-    activations; resident beside them the input and the f32 accumulator and
+    VRAM, inference.py:171-187). Per window the model config's estimate of
+    its activations; resident beside them the input and the f32 accumulator and
     count map (5 × the 2 B/voxel input) and the staged-logits chunk. Rounded
     down to a power of two; capped at 256 on a card, 32 elsewhere."""
     live = _device_bytes(device)[1]
@@ -380,7 +376,7 @@ def _forward_windows(model, vol, u16, starts, batch, roi, use_noise,
             x = wins[..., None]
             if flip_axis is not None:
                 x = torch.flip(x, dims=(flip_axis + 1,))
-            logits = basic_unet_apply(model, x, model_cfg)
+            logits = model_cfg.apply(model, x)
             if flip_axis is not None:
                 logits = torch.flip(logits, dims=(flip_axis + 1,))
             logits = logits[..., 0].float()

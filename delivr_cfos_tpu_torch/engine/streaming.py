@@ -45,7 +45,10 @@ from delivr_cfos_tpu_torch.engine.sliding_window import (
 )
 from delivr_cfos_tpu_torch.models.basic_unet import BasicUNet, BasicUNetConfig
 from delivr_cfos_tpu_torch.ops.morphology import binary_erosion_cross
-from delivr_cfos_tpu_torch.parallel.sharded_inference import sharded_accumulate
+from delivr_cfos_tpu_torch.parallel.sharded_inference import (
+    require_shardable,
+    sharded_accumulate,
+)
 from delivr_cfos_tpu_torch.utils.profiling import annotate
 
 ENGINE = "delivr_cfos_tpu_torch"  # sidecars of other engines never match
@@ -315,6 +318,8 @@ def infer_volume_streaming(model: BasicUNet, volume,
     result is added into the slab's accumulators on the model's device:
     volumes past one card's memory use every card of the mesh."""
     device = next(model.parameters()).device
+    if mesh is not None:
+        require_shardable(model_cfg)
     roi = tuple(cfg.roi)
     z_img, y_img, x_img = volume.shape
     if any(volume.shape[i] < roi[i] for i in range(3)):

@@ -60,6 +60,21 @@ class BasicUNetConfig:
     # takes InstanceNorm from the conv's stats, ignores it as JAX's does
     fused_in_mish: bool = False
 
+    # spatial sharding runs it (parallel/sharded_inference.py)
+    shardable = True
+
+    def window_bytes(self, roi) -> int:
+        """Device bytes one window of ``roi`` takes in a forward batch, for
+        the engine's sizing: about 8 live (roi·f0)-sized activations."""
+        dtype_bytes = 2 if self.precision == "fast" else 4
+        return 8 * int(math.prod(roi)) * self.features[0] * dtype_bytes
+
+    def build(self, state_dict, device) -> BasicUNet:
+        return build_model(state_dict, self, device)
+
+    def apply(self, model, x):
+        return basic_unet_apply(model, x, self)
+
 
 def mish(x: torch.Tensor) -> torch.Tensor:
     """x·tanh(softplus(x)), the JAX package's formula."""

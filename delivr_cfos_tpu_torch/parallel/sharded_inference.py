@@ -48,6 +48,16 @@ from delivr_cfos_tpu_torch.models.basic_unet import BasicUNet, BasicUNetConfig
 from delivr_cfos_tpu_torch.parallel.mesh import Mesh
 
 
+def require_shardable(model_cfg) -> None:
+    """Spatial sharding runs the models whose config says ``shardable``."""
+    if not model_cfg.shardable:
+        raise NotImplementedError(
+            f"{type(model_cfg).__name__} runs on one device: spatial sharding "
+            "(blob_detection.spatial_shards > 1, or a mesh of several devices) "
+            "is not supported for it"
+        )
+
+
 def plan_sharding(z: int, roi_z: int, stride_z: int, n_sp: int):
     """Host-side plan: padded extent, slab size, halo, and the per-shard
     assignment of the original z starts.

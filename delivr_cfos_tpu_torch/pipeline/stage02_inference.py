@@ -41,15 +41,14 @@ from delivr_cfos_tpu_torch.engine.sliding_window import (
     infer_volume,
 )
 from delivr_cfos_tpu_torch.engine.streaming import infer_volume_streaming
-from delivr_cfos_tpu_torch.models.basic_unet import (
-    BasicUNetConfig,
-    build_model,
-    infer_model_config,
-)
 from delivr_cfos_tpu_torch.models.convert import load_weights
+from delivr_cfos_tpu_torch.models.registry import build_model, infer_model_config
 from delivr_cfos_tpu_torch.ops.morphology import binarize_logits
 from delivr_cfos_tpu_torch.parallel.mesh import make_mesh, visible_devices
-from delivr_cfos_tpu_torch.parallel.sharded_inference import sharded_infer_volume
+from delivr_cfos_tpu_torch.parallel.sharded_inference import (
+    require_shardable,
+    sharded_infer_volume,
+)
 from delivr_cfos_tpu_torch.utils.device import resolve_device
 from delivr_cfos_tpu_torch.utils.io.nifti import read_nifti
 from delivr_cfos_tpu_torch.utils.io.npy import open_memmap
@@ -71,10 +70,11 @@ def inference_done(session_path: str) -> bool:
             and not os.path.exists(os.path.join(d, IN_PROGRESS)))
 
 
-def resolve_model_config(bd, params, device) -> tuple[BasicUNetConfig, str]:
+def resolve_model_config(bd, params, device):
     """The model config for ``blob_detection.precision`` ('fast' | 'parity'
-    | 'auto'); 'auto' is 'fast' on CUDA and 'parity' on the CPU. Returns
-    (model_cfg, resolved_mode)."""
+    | 'auto'); 'auto' is 'fast' on CUDA and 'parity' on the CPU. The
+    architecture comes from the weights' keys (``models/registry.py``):
+    SwinUNETR or BasicUNet. Returns (model_cfg, resolved_mode)."""
     base = infer_model_config(params)
     mode = (bd.precision or "auto").lower()
     if mode == "auto":
@@ -100,7 +100,7 @@ def sliding_window_config(cfg: PipelineConfig) -> SlidingWindowConfig:
 
 
 def run_inference(cfg: PipelineConfig, mouse_name: str, stack_shape: tuple,
-                  params=None, model_cfg: BasicUNetConfig | None = None,
+                  params=None, model_cfg=None,
                   device=None, mesh=None, devices=None) -> str:
     """Returns the session path ({blob_output}/{mouse}). ``params``: a
     MONAI-keyed state dict (``models/convert.py::load_weights``); ``device``:
@@ -163,6 +163,8 @@ def _run_inference(cfg, mouse_name, stack_shape, params, model_cfg, device, mesh
         if model_cfg is None:
             model_cfg, mode = resolve_model_config(bd, params, device)
             log(f"Model precision mode: {mode} on {device}")
+        if mesh is not None:
+            require_shardable(model_cfg)
         model = build_model(params, model_cfg, device)
 
     sw_cfg = sliding_window_config(cfg)

@@ -50,6 +50,9 @@ def make_optimizer(cfg: TrainConfig, params):
 
 
 def _check_trainable(model_cfg: BasicUNetConfig) -> None:
+    if not isinstance(model_cfg, BasicUNetConfig):
+        raise NotImplementedError(f"training runs BasicUNet alone, not "
+                                  f"{type(model_cfg).__name__}")
     if model_cfg.fused_in_mish:
         raise ValueError("fused_in_mish cannot train: the instance_norm_mish kernel has "
                          "no backward (nor has its Pallas counterpart in the JAX package)")

@@ -68,6 +68,13 @@ def count(name: str, n: int = 1) -> None:
         _counts[name] = _counts.get(name, 0) + n
 
 
+def read_counters() -> dict[str, int]:
+    """The counts kept since the last ``take_counters`` (or since ``trace()``
+    began), left as they are."""
+    with _counts_lock:
+        return dict(_counts)
+
+
 def take_counters() -> dict[str, int]:
     """The counts kept since the last call (or since ``trace()`` began),
     which are cleared."""

@@ -6,7 +6,12 @@ of its 18 epilogues through the op and calls ``F.softplus`` nowhere else; the
 wrapper refuses what the kernel does not take.
 
 On the card (marker ``cuda``; skips without one): the CUDA kernel within one
-bf16 ULP of the plain version at every element. This file imports neither
+bf16 ULP of the plain version at every element.
+
+The LeakyReLU and residual instances (``affine_act_cs``, SwinUNETR's residual
+blocks): on the CPU the plain version is the formula written out; on the
+card each instance within one bf16 ULP of it, and the mish instance that
+BasicUNet runs gives the same bits through either entry. This file imports neither
 JAX nor the JAX package, so it runs on a GPU machine without
 tests/conftest.py (which imports JAX):
 
@@ -25,6 +30,8 @@ from delivr_cfos_tpu_torch.models.basic_unet import (
     init_state_dict,
 )
 from delivr_cfos_tpu_torch.ops.affine_mish_cs import (
+    affine_act_cs,
+    affine_act_cs_reference,
     affine_mish_cs,
     affine_mish_cs_reference,
 )
@@ -137,6 +144,54 @@ def test_affine_mish_cs_rejects_what_the_kernel_does_not_take(case):
         affine_mish_cs(x, a, c)
 
 
+def _former_act(x, a, c, act, residual):
+    """SwinUNETR's epilogue written out: lrelu or mish of (x·a + c) +
+    (r·a_r + c_r) in f32, one bf16 rounding."""
+    v = x.float() * a[:, None, :, None] + c[:, None, :, None]
+    if residual is not None:
+        r, ar, cr = residual
+        v = v + (r.float() * ar[:, None, :, None] + cr[:, None, :, None])
+    if act == "lrelu":
+        return torch.where(v > 0, v, v * 0.01).to(torch.bfloat16)
+    return (v * torch.tanh(F.softplus(v))).to(torch.bfloat16)
+
+
+def _residual(shape, seed):
+    r, ar, cr = _inputs(shape, seed)
+    return r, ar, cr
+
+
+@pytest.mark.parametrize("act", ["lrelu", "mish"])
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("shape", [(2, 3, 4, 37), (1, 2, 48, 24)])
+def test_act_instances_on_the_cpu_are_the_formula(act, with_residual, shape):
+    x, a, c = _inputs(shape, seed=sum(shape))
+    res = _residual(shape, seed=sum(shape) + 1) if with_residual else None
+    before = affine_act_cs.launches
+    got = affine_act_cs(x, a, c, act=act, residual=res)
+    assert affine_act_cs.launches == before
+    assert torch.equal(got.view(torch.int16), _former_act(x, a, c, act, res).view(torch.int16))
+    if act == "mish" and res is None:
+        assert torch.equal(got, affine_mish_cs(x, a, c))
+
+
+@pytest.mark.parametrize("case", ["act", "r_shape", "r_f32", "ar_shape"])
+def test_affine_act_cs_rejects_what_the_kernel_does_not_take(case):
+    x, a, c = _inputs((2, 3, 4, 5), seed=1)
+    r, ar, cr = _residual((2, 3, 4, 5), seed=2)
+    act, error = "lrelu", ValueError
+    if case == "act":
+        act = "relu"
+    elif case == "r_shape":
+        r = r[:, :2].contiguous()
+    elif case == "r_f32":
+        r, error = r.float(), TypeError
+    elif case == "ar_shape":
+        ar = ar[:, :2].contiguous()
+    with pytest.raises(error):
+        affine_act_cs(x, a, c, act=act, residual=(r, ar, cr))
+
+
 # --- on the card --------------------------------------------------------------
 
 
@@ -242,3 +297,54 @@ def test_fast_forward_launches_the_kernel_at_every_epilogue(dev):
     torch.cuda.synchronize()
     assert affine_mish_cs.launches - before == 18
     assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", ["lrelu", "mish"])
+@pytest.mark.parametrize("with_residual", [False, True])
+@pytest.mark.parametrize("shape", [(2, 96, 48, 96 * 64), (2, 3, 5, 37), (3, 2, 3, 5),
+                                   (1, 1, 1, 9), (2, 2, 768, 6)])
+def test_act_instances_match_plain_version(dev, act, with_residual, shape):
+    """SwinUNETR's epilogue shapes (48 channels at full resolution, 768 on
+    the bottom stage's 3 × 2 plane) and planes that are not multiples of 8,
+    within one bf16 ULP; LeakyReLU without a residual to the bit."""
+    x, a, c = (t.to(dev) for t in _inputs(shape, seed=sum(shape)))
+    res = None
+    if with_residual:
+        res = tuple(t.to(dev) for t in _residual(shape, seed=sum(shape) + 1))
+    before = affine_act_cs.launches
+    got = affine_act_cs(x, a, c, act=act, residual=res)
+    torch.cuda.synchronize()
+    assert affine_act_cs.launches == before + 1
+    want = affine_act_cs_reference(x, a, c, act, res)
+    assert _ulps(got, want) <= 1.0
+    if act == "lrelu":
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lag", [0, 3])
+def test_act_instance_with_a_misaligned_residual(dev, lag):
+    """A residual whose alignment differs from x's is copied to x's."""
+    shape = (2, 3, 5, 37)
+    x, a, c = (t.to(dev) for t in _inputs(shape, seed=5))
+    r, ar, cr = (t.to(dev) for t in _residual(shape, seed=6))
+    base = torch.zeros(lag + r.numel() + 8, dtype=torch.bfloat16, device=dev)
+    view = base[lag + 1:lag + 1 + r.numel()].view(shape)
+    view.copy_(r)
+    got = affine_act_cs(x, a, c, act="lrelu", residual=(view, ar, cr))
+    want = affine_act_cs_reference(x, a, c, "lrelu", (r, ar, cr))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", _epilogue_shapes(FEATURES, WINDOW, 2)[:4] + [(2, 3, 5, 37)])
+def test_mish_instance_is_unchanged(dev, shape):
+    """BasicUNet's mish instance: the same bits through ``affine_mish_cs``
+    and ``affine_act_cs(act="mish")``, within one ULP of the plain version."""
+    x, a, c = (t.to(dev) for t in _inputs(shape, seed=sum(shape)))
+    old = affine_mish_cs(x, a, c)
+    new = affine_act_cs(x, a, c, act="mish")
+    torch.cuda.synchronize()
+    assert torch.equal(old.view(torch.int16), new.view(torch.int16))
+    assert _ulps(old, affine_mish_cs_reference(x, a, c)) <= 1.0

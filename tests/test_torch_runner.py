@@ -36,7 +36,7 @@ from delivr_cfos_tpu.pipeline.runner import run_pipeline as jax_run_pipeline
 from delivr_cfos_tpu.utils.hooks import HookEmitter as JaxHookEmitter
 from delivr_cfos_tpu_torch.__main__ import main
 from delivr_cfos_tpu_torch.config import PipelineConfig
-from delivr_cfos_tpu_torch.engine import sliding_window
+from delivr_cfos_tpu_torch.models import basic_unet
 from delivr_cfos_tpu_torch.models.basic_unet import BasicUNetConfig, init_state_dict
 from delivr_cfos_tpu_torch.pipeline.runner import run_pipeline
 from delivr_cfos_tpu_torch.pipeline.stage02_inference import IN_PROGRESS, inference_done
@@ -471,7 +471,7 @@ def test_a_failed_stage2_runs_again(masked_brain, monkeypatch, load_all_ram):
     assert int(want.sum()) > 0
 
     cfg = masked_brain(f"failed_{tag}", load_all_ram)
-    real = sliding_window.basic_unet_apply
+    real = basic_unet.basic_unet_apply
     calls = []
 
     def failing(*args, **kw):
@@ -480,10 +480,10 @@ def test_a_failed_stage2_runs_again(masked_brain, monkeypatch, load_all_ram):
             raise RuntimeError("forward failed")
         return real(*args, **kw)
 
-    monkeypatch.setattr(sliding_window, "basic_unet_apply", failing)
+    monkeypatch.setattr(basic_unet, "basic_unet_apply", failing)
     with pytest.raises(RuntimeError, match="forward failed"):
         run_pipeline(cfg, device="cpu")
-    monkeypatch.setattr(sliding_window, "basic_unet_apply", real)
+    monkeypatch.setattr(basic_unet, "basic_unet_apply", real)
     session = os.path.join(cfg.blob_detection.output_location, "brain")
     seg = os.path.join(session, "binary_segmentations")
     # what the JAX runner reads as a finished brain: binaries, no sidecar
